@@ -1,0 +1,433 @@
+"""Multi-scalar multiplication: the prefix-scan bucket method in PyTorch.
+
+Counterpart of the reference ``ops/msm.py`` (its module docstring has the
+algorithm): signed balanced c-bit windows, one sort of each window by
+|digit|, bucket sums telescoped into unsegmented prefix sums P[e_d], and the
+prefix sums computed block-decomposed with static shapes.
+
+    phase 1   K-step in-block reduction          -> K1 mixed_add_signed_multi
+    phase 2   scan of the block sums: one level (Kogge-Stone, K3), or two
+              levels (2a K2 jac_add_multi_scan, 2b Kogge-Stone K3, 2c one
+              row gather of the 2a scan)
+    phase 3   in-block rescan up to e_d          -> K1, then K3
+    phase 4   tree sum over d (K3), canonical    -> K4 canon
+              form, D * P[e_D] - sum P[e_d]      -> plain torch
+
+This is the reference's Pallas branch; the wrappers in ``curve_kernels``
+launch the CUDA kernels for CUDA tensors and run their plain versions for
+CPU tensors, so one pipeline serves both.  The sort and searchsorted are
+``torch.sort`` and ``torch.searchsorted``; every index the reference clips
+is clipped here too (a gather out of range raises in torch, and is a device
+assert on CUDA).  The cross-window fold runs on host ints.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .._ref.fields.params import CurveParams
+from ..fields.words import mont_words_to_ints
+from .curve import CurveOps, curve_ops
+from .curve_kernels import (
+    SIGN_SHIFT,
+    canon,
+    jac_add,
+    jac_add_multi_scan,
+    mixed_add_signed_multi,
+)
+from .field import FieldOps, field_ops
+
+WINDOW_BITS = 11
+_TILE = 128          # lane counts pad up to a multiple (one CUDA block)
+K_BLOCK = 16         # entries per block (phase 1/3 steps)
+FUSE_STEPS = 16      # gather-add steps per K1 launch
+SUPER = 16           # blocks per super-block (two-level phase 2)
+HOST_MSM_MAX = 1024  # at or below this many points the MSM runs on host ints
+CHUNK = 1 << 18      # points per device piece
+
+
+def num_windows(c: int = WINDOW_BITS) -> int:
+    """Windows for a 256-bit scalar, with one bit of headroom for the final
+    carry of the balanced signed recode."""
+    return -(-257 // c)
+
+
+def pick_window_bits(n: int) -> int:
+    return max(2, min(WINDOW_BITS, n.bit_length() - 2))
+
+
+def scalar_digits(scalars, nbytes: int = 32, c: int = WINDOW_BITS) -> np.ndarray:
+    """Python ints -> [nw, N] signed balanced window digits (int32, LSB
+    window first): sum_w d_w 2^(c w) = s with d_w in [-2^(c-1), 2^(c-1)]."""
+    n = len(scalars)
+    half = 1 << (c - 1)
+    nb = nbytes + 3  # slack for 3-byte reads from the headroom window
+    buf = b"".join(int(s).to_bytes(nb, "little") for s in scalars)
+    arr = np.frombuffer(buf, dtype=np.uint8).reshape(n, nb).astype(np.int64)
+    nw = num_windows(c)
+    mask = (1 << c) - 1
+    digs = np.zeros((nw, n), np.int64)
+    for w in range(nw):
+        k, off = divmod(c * w, 8)
+        v = (arr[:, k] | (arr[:, k + 1] << 8) | (arr[:, k + 2] << 16)) >> off
+        digs[w] = v & mask
+    carry = np.zeros(n, np.int64)
+    for w in range(nw):
+        v = digs[w] + carry
+        carry = (v >= half).astype(np.int64)
+        digs[w] = v - (carry << c)
+    if carry.any():
+        raise ValueError("scalar overflows the window decomposition")
+    return digs.astype(np.int32)
+
+
+def digits_from_mont_limbs(f: FieldOps, mont_words, c: int = WINDOW_BITS):
+    """Montgomery [N, W] words -> [nw, N] signed window digits, on the
+    device.  A window of c <= 12 bits spans at most two 32-bit words, so it
+    is re-packed with static shifts; the balanced recode is a short carry
+    chain over the nw windows."""
+    if c > 12:
+        raise ValueError("windows wider than 12 bits are not supported")
+    half = 1 << (c - 1)
+    u = f.from_mont(mont_words).to(torch.int64) & 0xFFFFFFFF
+    nw = num_windows(c)
+    mask = (1 << c) - 1
+    cols = []
+    for w in range(nw):
+        k, off = divmod(c * w, 32)
+        if k >= f.W:
+            cols.append(torch.zeros_like(u[:, 0]))
+            continue
+        b = u[:, k] >> off
+        if k + 1 < f.W and off + c > 32:
+            b = b | (u[:, k + 1] << (32 - off))
+        cols.append(b & mask)
+    carry = torch.zeros_like(u[:, 0])
+    out = []
+    for w in range(nw):
+        v = cols[w] + carry
+        carry = (v >= half).to(v.dtype)
+        out.append(v - (carry << c))
+    return torch.stack(out, dim=0).to(torch.int32)
+
+
+def _pad_lanes(n: int) -> int:
+    return -(-n // _TILE) * _TILE
+
+
+def _inf_lm(ops: CurveOps, w: int):
+    """Limbs-major identity (0 : 1 : 0) at lane width w."""
+    z = torch.zeros((ops.W, w), dtype=torch.int32, device=ops.device)
+    one = ops.f.one[:, None].expand(ops.W, w)
+    return torch.stack([z, one, z]).contiguous()
+
+
+def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
+                     k_block: int = K_BLOCK):
+    """[N+1, 2, W] infinity-padded affine points + [nw, N] signed digits
+    -> [nw, 3, W] batch-major window sums S_w = sum_d d B_d."""
+    dev = points_pad.device
+    W = ops.W
+    i32 = dict(dtype=torch.int32, device=dev)
+    n = points_pad.shape[0] - 1
+    pts_flat = points_pad.reshape(n + 1, 2 * W).contiguous()
+    nw = digits.shape[0]
+    D = 1 << (c - 1)
+    K = max(1, min(k_block, n))
+    S = SUPER
+    two_level = (-(-n // K)) >= 16 * S
+    blk_quant = K * S if two_level else K
+    n_pad = -(-n // blk_quant) * blk_quant
+    nblk = n_pad // K
+    nsb = nblk // S if two_level else 0
+
+    # ---- sort each window by |digit|.  (|d|, sign, row) pack into one int32
+    # key; CHUNK keeps bits(D) + 1 + bits(n - 1) <= 31.
+    idx_bits = max(1, (n - 1).bit_length())
+    if D.bit_length() + 1 + idx_bits > 31 or idx_bits > SIGN_SHIFT:
+        raise ValueError(f"{n} points at c = {c} do not fit the packed sort key")
+    mag = digits.abs()
+    rows = torch.arange(n, **i32)[None].expand(nw, n)
+    combo = (mag << (idx_bits + 1)) | ((digits < 0).to(torch.int32) << idx_bits) | rows
+    scombo = torch.sort(combo, dim=1).values
+    smag = scombo >> (idx_bits + 1)
+    packed = (scombo & ((1 << idx_bits) - 1)) | (((scombo >> idx_bits) & 1) << SIGN_SHIFT)
+    if n_pad > n:
+        smag = torch.cat([smag, torch.full((nw, n_pad - n), D + 1, **i32)], dim=1)
+        packed = torch.cat([packed, torch.full((nw, n_pad - n), n, **i32)], dim=1)
+    packed_blk = packed.reshape(nw, nblk, K).permute(2, 0, 1)   # [K, nw, nblk]
+
+    def fused_gather_steps(acc, packed_steps, nsteps, lanes, lanes_pad):
+        """packed_steps [nsteps, ...lanes]: K1 in groups of <= FUSE_STEPS."""
+        flat = torch.cat(
+            [packed_steps.reshape(nsteps, lanes),
+             torch.full((nsteps, lanes_pad - lanes), n, **i32)],
+            dim=1,
+        )
+        for j in range(0, nsteps, FUSE_STEPS):
+            acc = mixed_add_signed_multi(
+                ops, acc, pts_flat, flat[j : j + FUSE_STEPS].contiguous()
+            )
+        return acc
+
+    # ---- phase 1: in-block reduction -> block sums [3, W, w1p]
+    w1 = nw * nblk
+    w1p = _pad_lanes(w1)
+    block_sums = fused_gather_steps(_inf_lm(ops, w1p), packed_blk, K, w1, w1p)
+
+    # ---- phase 3 targets e_d = last sorted index with |digit| <= d
+    dvals = torch.arange(0, D + 1, **i32)[None].expand(nw, D + 1).contiguous()
+    e = torch.searchsorted(smag.contiguous(), dvals, right=True).to(torch.int32) - 1
+    eb = torch.where(e >= 0, torch.div(e, K, rounding_mode="floor"), -1)
+    r = torch.where(e >= 0, e - eb * K, -1)
+    prev = eb - 1                                  # last block fully before e_d
+    w_ids = torch.arange(nw, **i32)[:, None].expand(nw, D + 1)
+    w2 = nw * (D + 1)
+    w2p = _pad_lanes(w2)
+
+    def gather_rows_lm(bm_with_inf, lane, invalid):
+        """Rows of a batch-major [R+1, 3, W] table (last row = identity) at
+        [nw, D+1] lane ids -> limbs-major [3, W, w2p]."""
+        R1 = bm_with_inf.shape[0]
+        idx = torch.where(invalid, R1 - 1, lane).reshape(w2)
+        idx = torch.cat([idx, torch.full((w2p - w2,), R1 - 1, **i32)])
+        flat = bm_with_inf.reshape(R1, 3 * W)
+        return flat[idx.long()].T.reshape(3, W, w2p).contiguous()
+
+    inf_row_bm = ops.jac_infinity((1,))
+
+    if not two_level:
+        # ---- phase 2, one level: Kogge-Stone inclusive scan over block sums
+        # per window (lane w*nblk + b; shifts must not cross windows)
+        b_idx = torch.cat([
+            torch.arange(nblk, **i32).repeat(nw), torch.full((w1p - w1,), -1, **i32)
+        ])
+        inf_w1p = _inf_lm(ops, w1p)
+        scan = block_sums
+        for i in range(max(0, (nblk - 1).bit_length())):
+            sh = 1 << i
+            shifted = torch.where(
+                (b_idx < sh)[None, None, :], inf_w1p, torch.roll(scan, sh, dims=2)
+            )
+            scan = jac_add(ops, scan, shifted.contiguous())
+        scan_bm = torch.cat([scan.permute(2, 0, 1), inf_row_bm])
+        lane = w_ids * nblk + prev.clamp(0, nblk - 1)
+        base_lm = gather_rows_lm(scan_bm, lane, prev < 0)
+    else:
+        # ---- phase 2, two levels.  2a: scan each super-block of S block
+        # sums, emitting every step (K2)
+        bs5 = block_sums[:, :, :w1].reshape(3, W, nw, nsb, S)
+        wsb = nw * nsb
+        wsbp = _pad_lanes(wsb)
+        # zero padding lanes are junk points no consulted lane ever reads
+        qs = torch.nn.functional.pad(
+            bs5.movedim(4, 0).reshape(S, 3, W, wsb), (0, wsbp - wsb)
+        ).reshape(S * 3, W, wsbp).contiguous()
+        is_scan = jac_add_multi_scan(ops, _inf_lm(ops, wsbp), qs)
+        super_sums = is_scan[-3:]
+
+        # 2b: Kogge-Stone scan over the super sums per window
+        sb_idx = torch.cat([
+            torch.arange(nsb, **i32).repeat(nw), torch.full((wsbp - wsb,), -1, **i32)
+        ])
+        inf_wsbp = _inf_lm(ops, wsbp)
+        super_scan = super_sums.contiguous()
+        for i in range(max(0, (nsb - 1).bit_length())):
+            sh = 1 << i
+            shifted = torch.where(
+                (sb_idx < sh)[None, None, :], inf_wsbp,
+                torch.roll(super_scan, sh, dims=2),
+            )
+            super_scan = jac_add(ops, super_scan, shifted.contiguous())
+
+        # base = super_scan[esb_prev - 1] + is_scan[esb_prev][r2]
+        esb_prev = torch.where(prev >= 0, torch.div(prev, S, rounding_mode="floor"), -1)
+        r2 = torch.where(prev >= 0, prev - esb_prev * S, -1)
+        ss_bm = torch.cat([super_scan.permute(2, 0, 1)[:wsb], inf_row_bm])
+        lane_ss = w_ids * nsb + (esb_prev - 1).clamp(0, nsb - 1)
+        base_lm = gather_rows_lm(ss_bm, lane_ss, esb_prev - 1 < 0)
+
+        # 2c as one gather from the row table [(lane, s), 3W] of the 2a scan,
+        # identity row appended for prev < 0 targets
+        flat_is = is_scan.reshape(S * 3 * W, wsbp).T.reshape(wsbp * S, 3 * W)
+        tbl = torch.cat([flat_is, inf_row_bm.reshape(1, 3 * W)])
+        lane_sb = w_ids * nsb + esb_prev.clamp(0, nsb - 1)
+        idx = torch.where(prev < 0, wsbp * S, lane_sb * S + r2).reshape(w2)
+        idx = torch.cat([idx, torch.full((w2p - w2,), wsbp * S, **i32)])
+        rescan = tbl[idx.long()].T.reshape(3, W, w2p).contiguous()
+        base_lm = jac_add(ops, base_lm, rescan)
+
+    # ---- phase 3: in-block point rescan up to e_d, then P[e_d]
+    blk_members = torch.gather(
+        packed_blk.permute(1, 2, 0),                          # [nw, nblk, K]
+        1,
+        eb.clamp(0, nblk - 1).long()[:, :, None].expand(nw, D + 1, K),
+    ).permute(2, 0, 1)                                        # [K, nw, D+1]
+    j_all = torch.arange(K, **i32)[:, None, None]
+    live_all = (j_all <= r[None]) & (e[None] >= 0)
+    idx_all = torch.where(live_all, blk_members, n)
+    in_block = fused_gather_steps(_inf_lm(ops, w2p), idx_all, K, w2, w2p)
+    p_e = jac_add(ops, base_lm, in_block)                     # [3, W, w2p]
+
+    # ---- phase 4: S_w = D * P[e_D] - sum_{d<D} P[e_d].  Tree sum along d at
+    # constant shape; only lane d = 0 of each window is read at the end.
+    tree = p_e
+    for i in range((D - 1).bit_length()):
+        tree = jac_add(ops, tree, torch.roll(tree, -(D >> (i + 1)), dims=2))
+    tree = canon(ops, tree)
+    p_e = canon(ops, p_e)
+    stride = D + 1
+    prefix_sum = tree[:, :, 0 : nw * stride : stride].permute(2, 0, 1)  # [nw, 3, W]
+    d_top = p_e[:, :, D : nw * stride : stride].permute(2, 0, 1)
+    for _ in range(c - 1):                          # D * P[e_D], D = 2^(c-1)
+        d_top = ops.jac_double(d_top)
+    neg_sum = torch.stack(
+        [prefix_sum[:, 0], ops.f.neg(prefix_sum[:, 1]), prefix_sum[:, 2]], dim=1
+    )
+    return ops.jac_add(d_top, neg_sum)              # [nw, 3, W]
+
+
+# --------------------------------------------------------------- host MSM
+
+def _host_digits(s: int, c: int) -> list:
+    """Signed balanced base-2^c digits of a non-negative int."""
+    out = []
+    half, full = 1 << (c - 1), 1 << c
+    while s:
+        d = s & (full - 1)
+        s >>= c
+        if d > half:
+            d -= full
+            s += 1
+        out.append(d)
+    return out
+
+
+def host_msm(curve: CurveParams, points: list, scalars: list):
+    """Pippenger over host ints (copied from the reference ops/msm.py:665,
+    whose module imports jax): points = [(x, y) | None], scalars = ints.
+    Returns an affine int tuple or None."""
+    from .._ref.host import fp as hfp
+
+    F = hfp.GF(curve.fp.modulus)
+    n = len(points)
+    c = max(2, min(12, n.bit_length()))
+    nw = -(-curve.fr.modulus.bit_length() // c) + 1
+    buckets = [dict() for _ in range(nw)]
+    for p, s in zip(points, scalars):
+        if p is None or s == 0:
+            continue
+        neg = (p[0], (-p[1]) % curve.fp.modulus)
+        for w, d in enumerate(_host_digits(int(s), c)):
+            if d == 0:
+                continue
+            q = p if d > 0 else neg
+            b = buckets[w]
+            k = abs(d)
+            b[k] = hfp.ec_add(F, b.get(k), q) if k in b else q
+    acc = None
+    for w in range(nw - 1, -1, -1):
+        if acc is not None:
+            for _ in range(c):
+                acc = hfp.ec_double(F, acc)
+        run, tot = None, None
+        for k in range(max(buckets[w], default=0), 0, -1):
+            if k in buckets[w]:
+                run = hfp.ec_add(F, run, buckets[w][k])
+            if run is not None:
+                tot = hfp.ec_add(F, tot, run)
+        acc = hfp.ec_add(F, acc, tot) if tot is not None else acc
+    return acc
+
+
+class MsmCtx:
+    def __init__(self, curve: CurveParams, device):
+        self.curve = curve
+        self.ops: CurveOps = curve_ops(curve, device)
+        self.fr: FieldOps = field_ops(curve.fr, device)
+
+    def _host_fold(self, window_sums, c: int = WINDOW_BITS) -> tuple | None:
+        """[nw, 3, W] Montgomery projective window sums -> host affine int
+        tuple (or None), Horner over the windows on host ints."""
+        from .._ref.host import fp as hfp
+
+        p = self.curve.fp.modulus
+        nw = window_sums.shape[0]
+        coords = mont_words_to_ints(
+            window_sums.reshape(nw * 3, self.ops.W).cpu().numpy(), self.ops.wf
+        )
+        F = hfp.GF(p)
+        acc = None
+        for w in range(nw - 1, -1, -1):
+            X, Y, Z = coords[3 * w], coords[3 * w + 1], coords[3 * w + 2]
+            if acc is not None:
+                for _ in range(c):
+                    acc = hfp.ec_double(F, acc)
+            if Z != 0:
+                zi = pow(Z, -1, p)
+                acc = hfp.ec_add(F, acc, (X * zi % p, Y * zi % p))
+        return acc
+
+    def msm_to_affine_int(self, points_affine, scalars, kind: str = "auto",
+                          window_bits: int | None = None):
+        """MSM over G1 -> host affine int tuple (or None).
+
+        points_affine: [N, 2, W] Montgomery affine words on the device.
+        scalars, by ``kind``: 'ints' (canonical Python ints), 'mont'
+        ([N, W] Montgomery words, the prover's path), 'digits' ([nw, N]
+        signed window digits) or 'auto'."""
+        n = points_affine.shape[0]
+        if kind == "auto":
+            if isinstance(scalars, (list, tuple)):
+                kind = "ints"
+            elif scalars.ndim == 2 and tuple(scalars.shape) == (
+                num_windows(window_bits or WINDOW_BITS), n
+            ):
+                kind = "digits"
+            else:
+                kind = "mont"
+
+        if n <= HOST_MSM_MAX and kind != "digits":
+            ints = (
+                [int(s) for s in scalars] if kind == "ints"
+                else self.fr.decode(scalars)
+            )
+            return host_msm(
+                self.curve, self.ops.decode_affine(points_affine), ints
+            )
+
+        c = window_bits or (WINDOW_BITS if kind == "digits" else pick_window_bits(n))
+        if kind == "ints":
+            scal = torch.from_numpy(scalar_digits(scalars, c=c)).to(points_affine.device)
+            kind = "digits"
+        else:
+            scal = scalars
+        if kind == "digits" and tuple(scal.shape) != (num_windows(c), n):
+            raise ValueError(f"digits shape {tuple(scal.shape)} for c = {c}, n = {n}")
+
+        total = None
+        for off in range(0, n, CHUNK):
+            hi = min(off + CHUNK, n)
+            pts = points_affine[off:hi]
+            digs = (
+                digits_from_mont_limbs(self.fr, scal[off:hi], c=c)
+                if kind == "mont" else scal[:, off:hi]
+            )
+            pts_pad = torch.cat(
+                [pts, torch.zeros((1, 2, self.ops.W), dtype=torch.int32, device=pts.device)]
+            )
+            ws = window_sums_scan(self.ops, pts_pad, digs.contiguous(), c)
+            total = ws if total is None else self.ops.jac_add(total, ws)
+        return self._host_fold(total, c)
+
+
+@functools.lru_cache(maxsize=None)
+def _msm_ctx(curve: CurveParams, device: str) -> MsmCtx:
+    return MsmCtx(curve, device)
+
+
+def msm_ctx(curve: CurveParams, device="cpu") -> MsmCtx:
+    return _msm_ctx(curve, str(torch.device(device)))

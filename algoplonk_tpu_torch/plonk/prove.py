@@ -1,0 +1,404 @@
+"""The single-device PLONK prover, in PyTorch over the port's kernels.
+
+Counterpart of the reference ``plonk/prove.py`` (Proof and Prover, :39-845):
+
+  wire vectors -> iNTT -> 3 MSM commits -> grand product (blocked prefix
+  products + tree batch inversion) -> MSM -> quotient on the 4n coset
+  (coset NTTs, pointwise combination, division by Z_H) -> 3 MSM commits ->
+  evaluations and linearization -> openings (blocked Horner) -> 2 MSM commits.
+
+Round 3 is the reference's batch-major ``_quotient_xla``.  Fiat-Shamir runs
+on host through the reference transcript, so the proof bytes equal the
+reference's for the same blinding (``rng=False``: none).
+
+``phase_seconds`` records the host time of each round after the device has
+drained (the commits already wait on the device, so the marks cost nothing).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+from .._ref.fields.params import domain_generator, gnark_compat_enabled
+from .._ref.frontend.api import CompiledConstraintSystem
+from .._ref.frontend.witness import Witness, wire_values
+from .._ref.plonk.transcript import Transcript, hash_fr_bsb22
+from ..ops import poly as polyops
+from ..ops.field import field_ops
+from ..ops.msm import msm_ctx
+from ..ops.ntt import ntt_plan
+from .keys import ProvingKey
+
+
+@dataclass
+class Proof:
+    """gnark-shaped PLONK proof (host affine points / canonical scalars)."""
+
+    l_com: tuple
+    r_com: tuple
+    o_com: tuple
+    h0: tuple
+    h1: tuple
+    h2: tuple
+    l_at_z: int
+    r_at_z: int
+    o_at_z: int
+    s1_at_z: int
+    s2_at_z: int
+    z_com: tuple
+    z_omega_at_z: int
+    batch_opening: tuple
+    opening_z_omega: tuple
+    qcp_at_z: list = field(default_factory=list)
+    bsb_commitments: list = field(default_factory=list)
+
+
+def _scatter_rows(base, rows: list[int], values):
+    """base with ``rows`` replaced by ``values``.  The rows must be unique:
+    ``index_put_`` with repeated indices keeps an unspecified one."""
+    if len(set(rows)) != len(rows):
+        raise ValueError(f"scatter rows are not unique: {rows}")
+    out = base.clone()
+    out[torch.tensor(rows, dtype=torch.long, device=base.device)] = values
+    return out
+
+
+class Prover:
+    """PLONK prover on the proving key's device.
+
+    ``rng``: source of blinding randomness.  None uses ``secrets`` (hiding,
+    as gnark blinds its wire and Z polynomials); a ``random.Random`` gives
+    deterministic test proofs; False disables blinding."""
+
+    def __init__(self, pk: ProvingKey, ccs: CompiledConstraintSystem, rng=None):
+        self.pk = pk
+        self.ccs = ccs
+        if rng is None:
+            import secrets
+
+            self._rand = lambda r: secrets.randbelow(r)
+        elif rng is False:
+            self._rand = lambda r: 0
+        else:
+            self._rand = lambda r: rng.randrange(r)
+        self.curve = pk.curve
+        self.device = pk.device
+        # the prover derives its domains from the current constants mode,
+        # while pk bakes the mode it was built under: refuse a mismatch
+        exp_omega = domain_generator(self.curve.name, pk.log_n)
+        if pk.omega != exp_omega or pk.coset_shift != self.curve.coset_shift:
+            raise ValueError(
+                "proving key domain constants do not match the current "
+                f"constants mode (gnark_compat={gnark_compat_enabled()}); "
+                "call set_gnark_compat(...) to the mode the circuit was "
+                "compiled under before constructing the Prover"
+            )
+        self.f = field_ops(self.curve.fr, self.device)
+        self.msm = msm_ctx(self.curve, self.device)
+        self.plan = ntt_plan(self.curve.name, pk.log_n, self.device)
+        self.plan4 = ntt_plan(self.curve.name, pk.log_n + 2, self.device)
+        self.tr = Transcript(self.curve)
+        r = self.curve.fr.modulus
+        self.r = r
+        n = pk.n
+        self.coset_g = self.curve.coset_shift
+        # Z_H on the 4n coset is a 4-periodic pattern
+        self.w4 = domain_generator(self.curve.name, pk.log_n + 2)
+        gn = pow(self.coset_g, n, r)
+        w4n = pow(self.w4, n, r)
+        zh_pat = [(gn * pow(w4n, i, r) - 1) % r for i in range(4)]
+        self.zh_pattern = self.f.encode(zh_pat)
+        self.inv_zh_pattern = self.f.encode([pow(v, -1, r) for v in zh_pat])
+        self._bsb = []  # per-proof BSB22 state, filled by bsb_solver
+        self.phase_seconds: dict[str, float] = {}
+
+    # ---------------------------------------------------------------- utils
+
+    def _const(self, v: int):
+        return self.f.encode([v])[0]
+
+    def _commit(self, coeffs) -> tuple:
+        """KZG commit (monomial basis) -> host affine int point."""
+        return self.msm.msm_to_affine_int(
+            self.pk.srs_g1[: coeffs.shape[0]], coeffs, kind="mont"
+        )
+
+    def _blind(self, coeffs, nb: int):
+        """coeffs + (b_0 + b_1 X + ...) (X^n - 1): hides the polynomial off
+        H without changing it on H.  Output has n + nb coefficients."""
+        r, n = self.r, self.pk.n
+        bs = [self._rand(r) for _ in range(nb)]
+        if all(b == 0 for b in bs):
+            return coeffs
+        ext = [0] * (n + nb)
+        for i, b in enumerate(bs):
+            ext[i] = (ext[i] - b) % r
+            ext[n + i] = (ext[n + i] + b) % r
+        return self.f.add(polyops.pad_rows(coeffs, n + nb), self.f.encode(ext))
+
+    # ------------------------------------------------------------- BSB22
+
+    def bsb_solver(self, info, committed_values) -> int:
+        """Witness-solver hook for frontend commitments: interpolate the
+        committed polynomial over the linking rows, KZG-commit it, and return
+        hash_fr(commitment) as the commitment variable's value."""
+        n, npub, W = self.pk.n, self.pk.nb_public, self.f.W
+        rows = [npub + row for row in info.linking_rows]
+        c_ev = torch.zeros((n, W), dtype=torch.int32, device=self.device)
+        if rows:
+            c_ev = _scatter_rows(c_ev, rows, self.f.encode(committed_values))
+        c_c = self.plan.intt(c_ev)
+        com = self._commit(c_c)
+        self._bsb.append({"com": com, "c_c": c_c, "info": info})
+        return hash_fr_bsb22(self.curve, self.tr.point(com))
+
+    # ------------------------------------------------------------ round 3
+
+    def _quotient(self, l_c, r_c, o_c, z_c, qk_c_complete, bsb, beta, gamma, alpha):
+        """Round-3 quotient, batch-major (the reference's _quotient_xla):
+        returns (h0_c, h1_c, h2_c) coefficient slices [n+2, W]."""
+        f, r, n, pk = self.f, self.r, self.pk.n, self.pk
+        k1 = self.curve.coset_shift
+        k2 = k1 * k1 % r
+        beta_l = self._const(beta)
+        gamma_l = self._const(gamma)
+        g = self.coset_g
+        N4 = 4 * n
+
+        def lift(coeffs):
+            return self.plan4.coset_ntt(polyops.pad_rows(coeffs, N4), g)
+
+        # each selector is lifted just in time and dropped after use
+        l4, r4, o4 = lift(l_c), lift(r_c), lift(o_c)
+        gate = f.mul(lift(pk.ql_c), l4)
+        gate = f.add(gate, f.mul(lift(pk.qr_c), r4))
+        gate = f.add(gate, f.mul(lift(pk.qm_c), f.mul(l4, r4)))
+        gate = f.add(gate, f.mul(lift(pk.qo_c), o4))
+        gate = f.add(gate, lift(qk_c_complete))
+        for i, b in enumerate(bsb):
+            gate = f.add(gate, f.mul(lift(pk.qcp_c[i]), lift(b["c_c"])))
+
+        xs = f.mul(polyops.powers(f, self._const(self.w4), N4), self._const(g))
+        bxs = f.mul(beta_l, xs)
+        A = f.add(f.add(l4, bxs), gamma_l)
+        A = f.mul(A, f.add(f.add(r4, f.mul(bxs, self._const(k1))), gamma_l))
+        A = f.mul(A, f.add(f.add(o4, f.mul(bxs, self._const(k2))), gamma_l))
+        del bxs
+        z4 = lift(z_c)
+        z4m1 = f.sub(z4, f.one)
+        perm = f.mul(A, z4)
+        del A, z4
+
+        D = f.add(f.add(l4, f.mul(beta_l, lift(pk.s1_c))), gamma_l)
+        D = f.mul(D, f.add(f.add(r4, f.mul(beta_l, lift(pk.s2_c))), gamma_l))
+        D = f.mul(D, f.add(f.add(o4, f.mul(beta_l, lift(pk.s3_c))), gamma_l))
+        del l4, r4, o4
+        # z(omega X): scale coefficients by omega^i
+        zw_c = f.mul(z_c, polyops.powers(f, self._const(pk.omega), z_c.shape[0]))
+        perm = f.sub(f.mul(D, lift(zw_c)), perm)
+        del D, zw_c
+
+        # L1 on the coset: (x^n - 1) / (n (x - 1)); the batch inversion runs
+        # in 4 independent chunks of n
+        zh_tiled = self.zh_pattern.repeat(n, 1)
+        inv_zh_tiled = self.inv_zh_pattern.repeat(n, 1)
+        nconst = self._const(n)
+        inv_parts = [
+            polyops.batch_inverse_tree(
+                f, f.mul(f.sub(xs[q * n : (q + 1) * n], f.one), nconst)
+            )
+            for q in range(4)
+        ]
+        L1 = f.mul(zh_tiled, torch.cat(inv_parts))
+        del inv_parts, zh_tiled, xs
+
+        num_total = f.add(
+            gate,
+            f.add(
+                f.mul(self._const(alpha), perm),
+                f.mul(self._const(alpha * alpha % r), f.mul(L1, z4m1)),
+            ),
+        )
+        del gate, perm, L1, z4m1
+        h_c = self.plan4.coset_intt(f.mul(num_total, inv_zh_tiled), g)
+        m = n + 2
+        return h_c[:m], h_c[m : 2 * m], h_c[2 * m : 3 * m]
+
+    # ---------------------------------------------------------------- prove
+
+    def _mark(self, name: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.phase_seconds[name] = now - self._t
+        self._t = now
+
+    def prove(self, witness: Witness) -> Proof:
+        pk, f, r, n = self.pk, self.f, self.r, self.pk.n
+        curve = self.curve
+        vk = pk.vk
+        pub = witness.public_values
+        bsb = self._bsb
+        self._bsb = []
+        if len(bsb) != len(self.ccs.commitments):
+            raise RuntimeError(
+                "BSB22 state mismatch: solve the witness through "
+                "CompiledCircuit.verify (it wires bsb_solver into the solver)"
+            )
+        bsb_coms = [b["com"] for b in bsb]
+        self.phase_seconds = {}
+        self._t = time.perf_counter()
+
+        # ---- round 1: wire polynomials + commitments (blinded)
+        l_ints, r_ints, o_ints = wire_values(self.ccs, witness, n)
+        l_ev, r_ev, o_ev = f.encode(l_ints), f.encode(r_ints), f.encode(o_ints)
+        l_c = self._blind(self.plan.intt(l_ev), 2)
+        r_c = self._blind(self.plan.intt(r_ev), 2)
+        o_c = self._blind(self.plan.intt(o_ev), 2)
+        l_com = self._commit(l_c)
+        r_com = self._commit(r_c)
+        o_com = self._commit(o_c)
+        self._mark("r1")
+        gamma_d, gamma = self.tr.gamma(vk, pub, l_com, r_com, o_com)
+        beta_d, beta = self.tr.beta(gamma_d)
+
+        # ---- round 2: grand product
+        k1 = curve.coset_shift
+        k2 = k1 * k1 % r
+        omega_pows = polyops.powers(f, self._const(pk.omega), n)
+        beta_l = self._const(beta)
+        gamma_l = self._const(gamma)
+
+        def lin_term(w_ev, ids):
+            return f.add(f.add(w_ev, f.mul(beta_l, ids)), gamma_l)
+
+        id2 = f.mul(omega_pows, self._const(k1))
+        id3 = f.mul(omega_pows, self._const(k2))
+        num = f.mul(
+            f.mul(lin_term(l_ev, omega_pows), lin_term(r_ev, id2)), lin_term(o_ev, id3)
+        )
+        den = f.mul(
+            f.mul(lin_term(l_ev, pk.s1_ev), lin_term(r_ev, pk.s2_ev)),
+            lin_term(o_ev, pk.s3_ev),
+        )
+        ratio = f.mul(num, polyops.batch_inverse_tree(f, den))
+        pp = polyops.prefix_products(f, ratio)
+        z_ev = torch.cat([f.one[None], pp[:-1]])
+        z_c = self._blind(self.plan.intt(z_ev), 3)
+        z_com = self._commit(z_c)
+        del num, den, ratio, pp, z_ev, id2, id3, omega_pows, l_ev, r_ev, o_ev
+        self._mark("r2")
+        alpha_d, alpha = self.tr.alpha(beta_d, bsb_coms, z_com)
+
+        # ---- round 3: quotient on the 4n coset.  qk completion: only the
+        # public rows and the BSB22 commitment rows differ from pk.qk_ev
+        upd_rows = list(range(len(pub)))
+        upd_vals = list(pub)
+        for b in bsb:
+            info = b["info"]
+            upd_rows.append(pk.nb_public + info.constraint_index)
+            upd_vals.append(witness.values[info.commitment_var])
+        qk_ev_complete = pk.qk_ev
+        if upd_rows:
+            qk_ev_complete = _scatter_rows(pk.qk_ev, upd_rows, f.encode(upd_vals))
+        qk_c_complete = self.plan.intt(qk_ev_complete)
+        h0_c, h1_c, h2_c = self._quotient(
+            l_c, r_c, o_c, z_c, qk_c_complete, bsb, beta, gamma, alpha
+        )
+        h0 = self._commit(h0_c)
+        h1 = self._commit(h1_c)
+        h2 = self._commit(h2_c)
+        self._mark("r3")
+        zeta_d, zeta = self.tr.zeta(alpha_d, h0, h1, h2)
+
+        # ---- round 4: evaluations
+        zl = self._const(zeta)
+        evs = polyops.poly_eval_many(f, [l_c, r_c, o_c, pk.s1_c, pk.s2_c, *pk.qcp_c], zl)
+        wzeta = pk.omega * zeta % r
+        zw_ev = polyops.poly_eval_many(f, [z_c], self._const(wzeta))
+        vals = f.decode(torch.cat([evs, zw_ev]))
+        l_z, r_z, o_z, s1_z, s2_z = vals[:5]
+        qcp_z = vals[5:-1]
+        zw_z = vals[-1]
+
+        # ---- linearization polynomial
+        m = n + 2
+        zh_z = (pow(zeta, n, r) - 1) % r
+        l1_z = zh_z * pow(n * (zeta - 1) % r, -1, r) % r
+        pi = 0
+        lag_rows = [(i, p_val) for i, p_val in enumerate(pub)] + [
+            (pk.nb_public + b["info"].constraint_index,
+             witness.values[b["info"].commitment_var])
+            for b in bsb
+        ]
+        for idx, val in lag_rows:
+            wi = pow(pk.omega, idx, r)
+            li = zh_z * pow(n, -1, r) % r * wi % r * pow((zeta - wi) % r, -1, r) % r
+            pi = (pi + li * val) % r
+
+        u = (l_z + beta * s1_z + gamma) % r
+        v = (r_z + beta * s2_z + gamma) % r
+        lin_at_z = (
+            -(alpha * u % r * v % r * ((o_z + gamma) % r) % r * zw_z % r
+              + pi - alpha * alpha % r * l1_z)
+        ) % r
+        s3_coef = alpha * beta % r * zw_z % r * u % r * v % r
+        z_coef = (
+            -(alpha * ((l_z + beta * zeta + gamma) % r) % r
+              * ((r_z + beta * k1 % r * zeta + gamma) % r) % r
+              * ((o_z + beta * k2 % r * zeta + gamma) % r) % r)
+            + alpha * alpha % r * l1_z
+        ) % r
+
+        zeta_m = pow(zeta, m, r)  # zeta^(n+2), the H-part fold step
+        mlin = n + 3              # max component degree + 1 (blinded Z)
+
+        def acc(lin_acc, coeffs, scalar):
+            return f.add(lin_acc, f.mul(polyops.pad_rows(coeffs, mlin), self._const(scalar)))
+
+        lin = torch.zeros((mlin, f.W), dtype=torch.int32, device=self.device)
+        lin = acc(lin, pk.ql_c, l_z)
+        lin = acc(lin, pk.qr_c, r_z)
+        lin = acc(lin, pk.qm_c, l_z * r_z % r)
+        lin = acc(lin, pk.qo_c, o_z)
+        lin = acc(lin, pk.qk_c, 1)
+        for i, b in enumerate(bsb):
+            lin = acc(lin, b["c_c"], qcp_z[i])
+        lin = acc(lin, pk.s3_c, s3_coef)
+        lin = acc(lin, z_c, z_coef)
+        lin = acc(lin, h0_c, (-zh_z) % r)
+        lin = acc(lin, h1_c, (-zh_z) % r * zeta_m % r)
+        lin = acc(lin, h2_c, (-zh_z) % r * zeta_m % r * zeta_m % r)
+        lin_com = self._commit(lin)
+        self._mark("r4")
+
+        # ---- round 5: batched opening at zeta
+        fold_d, fold_r = self.tr.fold(
+            zeta, lin_com, l_com, r_com, o_com, vk,
+            lin_at_z, l_z, r_z, o_z, s1_z, s2_z, qcp_z, zw_z,
+        )
+        folded = lin
+        rv = 1
+        for coeffs in (l_c, r_c, o_c, pk.s1_c, pk.s2_c, *pk.qcp_c):
+            rv = rv * fold_r % r
+            folded = acc(folded, coeffs, rv)
+        # quotients have degree < deg(folded): trim the scan's padding
+        q_coeffs, _ = polyops.kzg_quotient(f, folded, zl)
+        batch_opening = self._commit(q_coeffs[:mlin])
+        q2_coeffs, _ = polyops.kzg_quotient(f, z_c, self._const(wzeta))
+        opening_z_omega = self._commit(q2_coeffs[:mlin])
+        self._mark("r5")
+        return Proof(
+            l_com=l_com, r_com=r_com, o_com=o_com,
+            h0=h0, h1=h1, h2=h2,
+            l_at_z=l_z, r_at_z=r_z, o_at_z=o_z,
+            s1_at_z=s1_z, s2_at_z=s2_z,
+            z_com=z_com, z_omega_at_z=zw_z,
+            batch_opening=batch_opening,
+            opening_z_omega=opening_z_omega,
+            qcp_at_z=qcp_z,
+            bsb_commitments=bsb_coms,
+        )

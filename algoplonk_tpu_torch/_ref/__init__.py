@@ -16,9 +16,16 @@ Two consequences for callers:
 * only jax-free modules may be imported from here.  ``plonk.keys``,
   ``plonk.prove``, ``plonk.marshal``, ``plonk.verify``, ``verifier.*`` and
   ``setups.registry.test_only_srs`` reach jax; the port has its own.
+
+The reference's ``fields.params._clear_derived_caches`` clears the caches
+that ``set_gnark_compat`` invalidates by the reference's module names
+(``algoplonk_tpu.host.mimc``, ...), which never name this instance's
+modules.  ``_extend_compat_clear`` wraps it, on this instance only, so a
+toggle also clears the port's caches that depend on the mode.
 """
 
 import os
+import sys
 
 __path__ = [
     os.path.join(
@@ -26,3 +33,29 @@ __path__ = [
         "algoplonk_tpu",
     )
 ]
+
+_PORT = __name__.rsplit(".", 1)[0]
+
+# (module, lru_cache'd function) pairs whose values depend on the compat mode
+_MODE_CACHES = (
+    (f"{__name__}.host.mimc", "round_constants"),
+    (f"{_PORT}.ops.ntt_kernels", "_four_step_plan"),
+)
+
+
+def _extend_compat_clear() -> None:
+    from .fields import params
+
+    ref_clear = params._clear_derived_caches
+
+    def _clear_derived_caches() -> None:
+        ref_clear()
+        for modname, attr in _MODE_CACHES:
+            m = sys.modules.get(modname)
+            if m is not None:
+                getattr(m, attr).cache_clear()
+
+    params._clear_derived_caches = _clear_derived_caches
+
+
+_extend_compat_clear()

@@ -1,4 +1,5 @@
-// Montgomery field core inlined by every kernel of msm_kernels.cu.
+// Montgomery field core inlined by every kernel of msm_kernels.cu and
+// ntt_kernels.cu.
 //
 // Replaces algoplonk_tpu/ops/field_pallas.py:FieldVals (with field_consts,
 // field_mats and sub_bias_limbs), the field arithmetic that the TPU kernels

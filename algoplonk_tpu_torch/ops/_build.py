@@ -1,11 +1,15 @@
 """Build and load the CUDA kernels of ``algoplonk_tpu_torch/csrc``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface, which ctypes loads.  No PyTorch
-header is included, which keeps the build to seconds.  The library lands in
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+process per source, all started together) and links them into one shared
+library with a plain C interface, which ctypes loads.  No PyTorch header is
+included, which keeps the build to seconds.  The library lands in
 ``algoplonk_tpu_torch/_kernels/`` (ignored by git) under a name that hashes
 the sources and flags, so an edited source is rebuilt and never mistaken for
 a stale build.  A failed build raises.
+
+The wrappers' shared checks (``check_tensor``, ``stream_of``, ``raise_on``)
+live here too.
 """
 
 from __future__ import annotations
@@ -20,12 +24,14 @@ import tempfile
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -66,11 +72,42 @@ def _set_signatures(lib) -> None:
         "ap_jac_add": [vp, vp, vp, i64, vp, vp],
         "ap_canon": [vp, vp, i64, i64, vp, vp],
         "ap_consts_words": [],
+        "ap_ntt_pass": [vp, vp, vp, vp, vp, i64, i32, i32, vp, vp],
+        "ap_ntt_consts_words": [],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+
+
+def _compile(target: str) -> str:
+    """nvcc -c for every source in parallel, then one link; returns the log."""
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
+        so = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs],
+            capture_output=True, text=True,
+        )
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(so, target)
+    return log
 
 
 def library():
@@ -83,19 +120,32 @@ def library():
         target = os.path.join(BUILD_DIR, f"libap_kernels_{_digest()}.so")
         if not os.path.exists(target):
             t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{build_log}"
-                )
-            os.replace(tmp, target)
+            build_log = _compile(target)
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(target)
         _set_signatures(lib)
         _lib = lib
         return lib
+
+
+# ------------------------------------------------------- wrapper helpers
+
+def check_tensor(name: str, t: torch.Tensor, shape: tuple) -> None:
+    """A kernel operand must be a contiguous int32 CUDA tensor of ``shape``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def stream_of(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..fields.words import ints_to_mont_words, ints_to_words
+from ._build import check_tensor, raise_on, stream_of
 from .curve import CurveOps
 
 SIGN_SHIFT = 26  # bit of a packed member index carrying the digit sign
@@ -104,17 +105,6 @@ def _consts(ops: CurveOps):
     return buf
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
 def _lib(ops: CurveOps):
     from ._build import library
 
@@ -127,15 +117,6 @@ def _lib(ops: CurveOps):
     return lib
 
 
-def _stream(t: torch.Tensor):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
-
-
 def mixed_add_signed_multi(ops: CurveOps, acc, pts_flat, packed):
     """K1: acc [3, W, B] plus g signed affine points, gathered from the flat
     table ``pts_flat`` [N+1, 2W] at ``packed`` [g, B] member indices (row in
@@ -145,16 +126,16 @@ def mixed_add_signed_multi(ops: CurveOps, acc, pts_flat, packed):
     W = ops.W
     B = acc.shape[-1]
     g = packed.shape[0]
-    _check("acc", acc, (3, W, B))
-    _check("pts_flat", pts_flat, (pts_flat.shape[0], 2 * W))
-    _check("packed", packed, (g, B))
+    check_tensor("acc", acc, (3, W, B))
+    check_tensor("pts_flat", pts_flat, (pts_flat.shape[0], 2 * W))
+    check_tensor("packed", packed, (g, B))
     lib = _lib(ops)
     out = torch.empty_like(acc)
     rc = lib.ap_mixed_add_signed_multi(
         acc.data_ptr(), pts_flat.data_ptr(), packed.data_ptr(), out.data_ptr(),
-        B, g, pts_flat.shape[0], _consts(ops), _stream(acc),
+        B, g, pts_flat.shape[0], _consts(ops), stream_of(acc),
     )
-    _raise_on(rc, "mixed_add_signed_multi")
+    raise_on(rc, "mixed_add_signed_multi")
     LAUNCHES["mixed_add_signed_multi"] += 1
     return out
 
@@ -167,15 +148,15 @@ def jac_add_multi_scan(ops: CurveOps, acc, qs):
     W = ops.W
     B = acc.shape[-1]
     g = qs.shape[0] // 3
-    _check("acc", acc, (3, W, B))
-    _check("qs", qs, (3 * g, W, B))
+    check_tensor("acc", acc, (3, W, B))
+    check_tensor("qs", qs, (3 * g, W, B))
     lib = _lib(ops)
     out = torch.empty_like(qs)
     rc = lib.ap_jac_add_multi_scan(
         acc.data_ptr(), qs.data_ptr(), out.data_ptr(), B, g, _consts(ops),
-        _stream(acc),
+        stream_of(acc),
     )
-    _raise_on(rc, "jac_add_multi_scan")
+    raise_on(rc, "jac_add_multi_scan")
     LAUNCHES["jac_add_multi_scan"] += 1
     return out
 
@@ -186,14 +167,14 @@ def jac_add(ops: CurveOps, p, q):
         return plain_jac_add(ops, p, q)
     W = ops.W
     B = p.shape[-1]
-    _check("p", p, (3, W, B))
-    _check("q", q, (3, W, B))
+    check_tensor("p", p, (3, W, B))
+    check_tensor("q", q, (3, W, B))
     lib = _lib(ops)
     out = torch.empty_like(p)
     rc = lib.ap_jac_add(
-        p.data_ptr(), q.data_ptr(), out.data_ptr(), B, _consts(ops), _stream(p)
+        p.data_ptr(), q.data_ptr(), out.data_ptr(), B, _consts(ops), stream_of(p)
     )
-    _raise_on(rc, "jac_add")
+    raise_on(rc, "jac_add")
     LAUNCHES["jac_add"] += 1
     return out
 
@@ -204,10 +185,10 @@ def canon(ops: CurveOps, x):
         return plain_canon(ops, x)
     W = ops.W
     R, B = x.shape[0], x.shape[-1]
-    _check("x", x, (R, W, B))
+    check_tensor("x", x, (R, W, B))
     lib = _lib(ops)
     out = torch.empty_like(x)
-    rc = lib.ap_canon(x.data_ptr(), out.data_ptr(), R, B, _consts(ops), _stream(x))
-    _raise_on(rc, "canon")
+    rc = lib.ap_canon(x.data_ptr(), out.data_ptr(), R, B, _consts(ops), stream_of(x))
+    raise_on(rc, "canon")
     LAUNCHES["canon"] += 1
     return out

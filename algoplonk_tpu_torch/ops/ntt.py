@@ -30,7 +30,7 @@ def _bit_reverse_perm(n: int) -> np.ndarray:
     return rev
 
 
-def _power_table(base: int, count: int, modulus: int) -> list[int]:
+def power_table(base: int, count: int, modulus: int) -> list[int]:
     out = [1] * count
     for i in range(1, count):
         out[i] = out[i - 1] * base % modulus
@@ -50,8 +50,8 @@ class NttPlan:
         self.omega_inv = pow(self.omega, -1, r)
         self.n_inv = pow(self.n, -1, r)
         half = max(self.n // 2, 1)
-        self.tw_fwd = self.f.encode(_power_table(self.omega, half, r))
-        self.tw_inv = self.f.encode(_power_table(self.omega_inv, half, r))
+        self.tw_fwd = self.f.encode(power_table(self.omega, half, r))
+        self.tw_inv = self.f.encode(power_table(self.omega_inv, half, r))
         self.n_inv_mont = self.f.encode([self.n_inv])[0]
         self.bitrev = torch.from_numpy(_bit_reverse_perm(self.n)).to(self.f.device)
         self._shift_tables: dict = {}
@@ -88,7 +88,7 @@ class NttPlan:
         if tbl is None:
             r = self.curve.fr.modulus
             s = pow(shift, -1, r) if inverse else shift
-            tbl = self.f.encode(_power_table(s, self.n, r))
+            tbl = self.f.encode(power_table(s, self.n, r))
             self._shift_tables[key] = tbl
         return tbl
 

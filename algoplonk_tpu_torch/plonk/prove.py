@@ -7,9 +7,13 @@ Counterpart of the reference ``plonk/prove.py`` (Proof and Prover, :39-845):
   (coset NTTs, pointwise combination, division by Z_H) -> 3 MSM commits ->
   evaluations and linearization -> openings (blocked Horner) -> 2 MSM commits.
 
-Round 3 is the reference's batch-major ``_quotient_xla``.  Fiat-Shamir runs
-on host through the reference transcript, so the proof bytes equal the
-reference's for the same blinding (``rng=False``: none).
+Round 3 takes one of the reference's two quotient paths, chosen by the
+same rule (``_use_lm_quotient``): the batch-major ``_quotient`` (the
+reference's ``_quotient_xla``) or, from a coset of 2^19 on, the four-step
+``_quotient_lm`` over the NTT stage kernel K9 (ops/ntt_kernels.py).  Both
+give the same proof.  Fiat-Shamir runs on host through the reference
+transcript, so the proof bytes equal the reference's for the same blinding
+(``rng=False``: none).
 
 ``phase_seconds`` records the host time of each round after the device has
 drained (the commits already wait on the device, so the marks cost nothing).
@@ -17,6 +21,7 @@ drained (the commits already wait on the device, so the marks cost nothing).
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -30,6 +35,7 @@ from ..ops import poly as polyops
 from ..ops.field import field_ops
 from ..ops.msm import msm_ctx
 from ..ops.ntt import ntt_plan
+from ..ops.ntt_kernels import four_step_plan
 from .keys import ProvingKey
 
 
@@ -99,7 +105,6 @@ class Prover:
         self.f = field_ops(self.curve.fr, self.device)
         self.msm = msm_ctx(self.curve, self.device)
         self.plan = ntt_plan(self.curve.name, pk.log_n, self.device)
-        self.plan4 = ntt_plan(self.curve.name, pk.log_n + 2, self.device)
         self.tr = Transcript(self.curve)
         r = self.curve.fr.modulus
         self.r = r
@@ -109,9 +114,10 @@ class Prover:
         self.w4 = domain_generator(self.curve.name, pk.log_n + 2)
         gn = pow(self.coset_g, n, r)
         w4n = pow(self.w4, n, r)
-        zh_pat = [(gn * pow(w4n, i, r) - 1) % r for i in range(4)]
-        self.zh_pattern = self.f.encode(zh_pat)
-        self.inv_zh_pattern = self.f.encode([pow(v, -1, r) for v in zh_pat])
+        self.zh_pat_ints = [(gn * pow(w4n, i, r) - 1) % r for i in range(4)]
+        self.inv_zh_pat_ints = [pow(v, -1, r) for v in self.zh_pat_ints]
+        self.zh_pattern = self.f.encode(self.zh_pat_ints)
+        self.inv_zh_pattern = self.f.encode(self.inv_zh_pat_ints)
         self._bsb = []  # per-proof BSB22 state, filled by bsb_solver
         self.phase_seconds: dict[str, float] = {}
 
@@ -119,6 +125,12 @@ class Prover:
 
     def _const(self, v: int):
         return self.f.encode([v])[0]
+
+    @property
+    def plan4(self):
+        """The radix-2 plan of the 4n coset, built at first use: the
+        four-step path never needs its tables."""
+        return ntt_plan(self.curve.name, self.pk.log_n + 2, self.device)
 
     def _commit(self, coeffs) -> tuple:
         """KZG commit (monomial basis) -> host affine int point."""
@@ -156,6 +168,17 @@ class Prover:
         return hash_fr_bsb22(self.curve, self.tr.point(com))
 
     # ------------------------------------------------------------ round 3
+
+    def _use_lm_quotient(self) -> bool:
+        """Take the four-step quotient (``_quotient_lm``)?  The reference's
+        rule and variables: AP_QUOTIENT_LM=0/1 forces a path, otherwise the
+        four-step one from a coset of 2^AP_NTT_LM_MIN_LOG (default 19) on.
+        Unlike the reference, on any device: on the CPU its K9 passes run
+        their plain version."""
+        forced = os.environ.get("AP_QUOTIENT_LM", "")
+        if forced in ("0", "1"):
+            return forced == "1"
+        return self.pk.log_n + 2 >= int(os.environ.get("AP_NTT_LM_MIN_LOG", "19"))
 
     def _quotient(self, l_c, r_c, o_c, z_c, qk_c_complete, bsb, beta, gamma, alpha):
         """Round-3 quotient, batch-major (the reference's _quotient_xla):
@@ -224,6 +247,78 @@ class Prover:
         )
         del gate, perm, L1, z4m1
         h_c = self.plan4.coset_intt(f.mul(num_total, inv_zh_tiled), g)
+        m = n + 2
+        return h_c[:m], h_c[m : 2 * m], h_c[2 * m : 3 * m]
+
+    def _quotient_lm(self, l_c, r_c, o_c, z_c, qk_c_complete, bsb, beta, gamma, alpha):
+        """Round-3 quotient through the four-step transforms (the
+        reference's ``_quotient_lm``, named after it though the port keeps
+        [4n, W] batch-major): the same math as ``_quotient``, with every
+        coset evaluation in the four-step's scrambled order.  Everything
+        between the transforms is pointwise, and the order-dependent inputs
+        (coset x values, Z_H patterns) are built in scrambled order, so the
+        h polynomials are the batch-major path's exactly.
+
+        The reference's HBM discipline for cosets of 2^21 and more (sync
+        barriers, table eviction, buffer donation) is not carried over."""
+        f, r, n, pk = self.f, self.r, self.pk.n, self.pk
+        fsp = four_step_plan(self.curve.name, pk.log_n + 2, self.device)
+        k1 = self.curve.coset_shift
+        k2 = k1 * k1 % r
+        beta_l = self._const(beta)
+        gamma_l = self._const(gamma)
+        g = self.coset_g
+        N4 = 4 * n
+
+        def lift(coeffs):
+            return fsp.ntt_scr(polyops.pad_rows(coeffs, N4), coset_shift=g)
+
+        l4, r4, o4 = lift(l_c), lift(r_c), lift(o_c)
+        gate = f.mul(lift(pk.ql_c), l4)
+        gate = f.add(gate, f.mul(lift(pk.qr_c), r4))
+        gate = f.add(gate, f.mul(lift(pk.qm_c), f.mul(l4, r4)))
+        gate = f.add(gate, f.mul(lift(pk.qo_c), o4))
+        gate = f.add(gate, lift(qk_c_complete))
+        for i, b in enumerate(bsb):
+            gate = f.add(gate, f.mul(lift(pk.qcp_c[i]), lift(b["c_c"])))
+
+        xs = fsp.coset_x_scr(g)
+        bxs = f.mul(xs, beta_l)
+        A = f.add(f.add(l4, bxs), gamma_l)
+        A = f.mul(A, f.add(f.add(r4, f.mul(bxs, self._const(k1))), gamma_l))
+        A = f.mul(A, f.add(f.add(o4, f.mul(bxs, self._const(k2))), gamma_l))
+        del bxs
+        # L1 denominators n (x - 1), inverted in independent chunks
+        nconst = self._const(n)
+        chunk = min(n, 1 << 18)
+        inv_all = torch.cat([
+            polyops.batch_inverse_tree(
+                f, f.mul(f.sub(xs[q * chunk : (q + 1) * chunk], f.one), nconst)
+            )
+            for q in range(N4 // chunk)
+        ])
+        z4 = lift(z_c)
+        perm = f.mul(A, z4)
+        del A
+
+        D = f.add(f.add(l4, f.mul(lift(pk.s1_c), beta_l)), gamma_l)
+        D = f.mul(D, f.add(f.add(r4, f.mul(lift(pk.s2_c), beta_l)), gamma_l))
+        D = f.mul(D, f.add(f.add(o4, f.mul(lift(pk.s3_c), beta_l)), gamma_l))
+        del l4, r4, o4
+        zw_c = f.mul(z_c, polyops.powers(f, self._const(pk.omega), z_c.shape[0]))
+        perm = f.sub(f.mul(D, lift(zw_c)), perm)
+        del D, zw_c
+
+        L1 = f.mul(f.mul(fsp.tile_by_k_mod4(self.zh_pat_ints), inv_all), f.sub(z4, f.one))
+        del inv_all, z4
+        num_total = f.add(
+            gate,
+            f.add(f.mul(perm, self._const(alpha)), f.mul(L1, self._const(alpha * alpha % r))),
+        )
+        del gate, perm, L1
+        h_ev = f.mul(num_total, fsp.tile_by_k_mod4(self.inv_zh_pat_ints))
+        del num_total
+        h_c = fsp.intt_scr(h_ev, coset_shift=g)
         m = n + 2
         return h_c[:m], h_c[m : 2 * m], h_c[2 * m : 3 * m]
 
@@ -305,9 +400,8 @@ class Prover:
         if upd_rows:
             qk_ev_complete = _scatter_rows(pk.qk_ev, upd_rows, f.encode(upd_vals))
         qk_c_complete = self.plan.intt(qk_ev_complete)
-        h0_c, h1_c, h2_c = self._quotient(
-            l_c, r_c, o_c, z_c, qk_c_complete, bsb, beta, gamma, alpha
-        )
+        quotient = self._quotient_lm if self._use_lm_quotient() else self._quotient
+        h0_c, h1_c, h2_c = quotient(l_c, r_c, o_c, z_c, qk_c_complete, bsb, beta, gamma, alpha)
         h0 = self._commit(h0_c)
         h1 = self._commit(h1_c)
         h2 = self._commit(h2_c)

@@ -6,40 +6,57 @@
 Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
-1. build the four MSM kernels from algoplonk_tpu_torch/csrc with nvcc
-   (sm_90a), run each on random valid points at the lane widths a 2^16
-   commit gives it (c = 11, K = 16), and require word-for-word equality with
-   its plain PyTorch version on the same inputs (tolerance: exact);
-2. the main path, with the launch counts zeroed just before it: compile the
+1. build the kernels from algoplonk_tpu_torch/csrc with nvcc (sm_90a, one
+   process per source): the four MSM kernels K1-K4 on random valid points at
+   the lane widths a 2^16 commit gives them (c = 11, K = 16), and the NTT
+   stage kernel K9 on random residues at the four pass shapes of the 2^17
+   path's four-step transforms of 2^19 (C = 512 and 1024, forward and
+   inverse, with and without the fused entry and exit multiplies).  Each
+   must equal its plain PyTorch version word for word (tolerance: exact);
+2. the 2^16 path, with the launch counts zeroed just before it: compile the
    2^16-constraint SquareChain circuit on BN254 with the test SRS on the
-   GPU, prove and self-verify it (CompiledCircuit.verify), marshal; the
-   proof must be 24 words, a flipped public input must be rejected, and
-   every kernel must have launched;
+   GPU, prove and self-verify it (CompiledCircuit.verify, batch-major
+   quotient), marshal; the proof must be 24 words, a flipped public input
+   must be rejected, and K1-K4 must have launched;
 3. one commit-sized MSM (65,539 points of that SRS): the kernel path must
    equal the plain path and the host Pippenger;
 4. a small circuit proved on the GPU (device MSM forced) must give the same
-   proof bytes as on the CPU, and a BSB22 circuit must prove and verify.
+   proof bytes as on the CPU through both quotient paths, and a BSB22
+   circuit must prove and verify;
+5. the 2^17 path: one four-step coset transform of 2^19 must equal the
+   radix-2 plan's (positions through scramble_perm) and invert exactly;
+   then, with the counts zeroed, the 2^17 SquareChain (the cap of the
+   production BN254 setup) is compiled, proved through the four-step
+   quotient and self-verified, with the same checks as phase 2 and every
+   kernel, K9 included, launched; two more proves of the same witness with
+   Prover(rng=False), forced through each quotient path, must give equal
+   bytes.
 
-Output: timings on stderr and on stdout; before the last line the card's
-name and power limit, then a JSON line of per-kernel numbers; the last line
-is {"ok": true, "device": {...}}.
+Output: timings on stdout; before the last line the card's name and power
+limit, then a JSON line of per-kernel numbers (launches from the 2^17 path;
+K9's ms and plain_ms are the sums over its four pass shapes, itemised under
+"passes"); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import random
 import subprocess
 import sys
 import time
 
-LOG_N = 16
+LOG_N = 16        # the 2^16 path (batch-major quotient)
+LM_LOG_N = 17     # the 2^17 path (four-step quotient, K9)
 SRC = "algoplonk_tpu_torch/csrc/msm_kernels.cu"
+NTT_SRC = "algoplonk_tpu_torch/csrc/ntt_kernels.cu"
 REPLACES = {
     "mixed_add_signed_multi": "algoplonk_tpu/ops/curve_pallas.py:250",
     "jac_add_multi_scan": "algoplonk_tpu/ops/curve_pallas.py:357",
     "jac_add": "algoplonk_tpu/ops/curve_pallas.py:292",
     "canon": "algoplonk_tpu/ops/curve_pallas.py:404",
+    "ntt_pass": "algoplonk_tpu/ops/ntt_pallas.py:129",
 }
 
 
@@ -193,6 +210,75 @@ def kernel_phase(torch, rng):
     return results
 
 
+def random_residues(torch, f, n: int, gen):
+    """n canonical residues [n, W] on f's device: random words with the top
+    word cut below 2^28, so every value is below 2^252 < p."""
+    x = torch.randint(-2**31, 2**31, (n, f.W), generator=gen, dtype=torch.int64)
+    x[:, -1] &= (1 << 28) - 1
+    return x.to(torch.int32).to(f.device).contiguous()
+
+
+def ntt_kernel_phase(torch):
+    """K9 against its plain version at the pass shapes of the 2^17 path:
+    the four-step transform of 2^19 splits into n1 = 512 and n2 = 1024."""
+    from algoplonk_tpu_torch.ops import ntt_kernels as nk
+
+    fsp = nk.four_step_plan("bn254", LM_LOG_N + 2, "cuda")
+    f, N = fsp.f, fsp.n
+    g = torch.Generator(device="cpu").manual_seed(9)
+    passes, worst = [], 0
+    for C, inverse, fused in ((fsp.n1, False, True), (fsp.n2, False, False),
+                              (fsp.n2, True, False), (fsp.n1, True, True)):
+        x = random_residues(torch, f, N, g)
+        tw = fsp.twiddles(C, inverse)
+        kw = {}
+        if fused:
+            kw = dict(entry=random_residues(torch, f, N, g), exit_=random_residues(torch, f, N, g))
+        kern = lambda: nk.ntt_pass(f, x, tw, C, inverse, **kw)          # noqa: E731
+        plain = lambda: nk.plain_ntt_pass(f, x, tw, C, inverse, **kw)   # noqa: E731
+        out_k = kern()
+        torch.cuda.synchronize()
+        out_p = plain()
+        diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
+        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 1)
+        shape = f"{'dit' if inverse else 'dif'} N={N} C={C}" + (" entry+exit" if fused else "")
+        log(f"ntt_pass {shape}: exact={diff == 0} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+        if diff != 0:
+            raise AssertionError(f"ntt_pass {shape}: kernel disagrees with its plain version")
+        worst = max(worst, diff)
+        passes.append({"shape": shape, "ms": ms, "plain_ms": plain_ms})
+    return {"name": "ntt_pass", "route": "cuda", "source": NTT_SRC,
+            "replaces": REPLACES["ntt_pass"], "max_abs_err": worst,
+            "ms": sum(p["ms"] for p in passes),
+            "plain_ms": sum(p["plain_ms"] for p in passes), "passes": passes}
+
+
+def four_step_check(torch):
+    """One four-step coset transform of 2^19 against the radix-2 plan."""
+    import algoplonk_tpu_torch as apt
+    from algoplonk_tpu_torch.ops import ntt_kernels as nk
+    from algoplonk_tpu_torch.ops.ntt import ntt_plan
+
+    log_n, shift = LM_LOG_N + 2, apt.BN254.coset_shift
+    fsp = nk.four_step_plan("bn254", log_n, "cuda")
+    coeffs = random_residues(torch, fsp.f, fsp.n, torch.Generator(device="cpu").manual_seed(10))
+    t0 = time.perf_counter()
+    ev = fsp.ntt_scr(coeffs, coset_shift=shift)
+    torch.cuda.synchronize()
+    t_fs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = ntt_plan("bn254", log_n, "cuda").coset_ntt(coeffs, shift)
+    torch.cuda.synchronize()
+    t_r2 = time.perf_counter() - t0
+    perm = torch.from_numpy(fsp.scramble_perm()).to(coeffs.device)
+    same = torch.equal(ev, nat[perm])
+    back = torch.equal(fsp.intt_scr(ev, coset_shift=shift), coeffs)
+    log(f"coset transform of 2^{log_n}: four-step {t_fs:.3f} s (tables included), "
+        f"radix-2 plain {t_r2:.3f} s (plan included); equal: {same}; round trip: {back}")
+    if not (same and back):
+        raise AssertionError("four-step coset transform disagrees with the radix-2 plan")
+
+
 class plain_kernels:
     """Route the MSM pipeline through the plain versions on CUDA tensors."""
 
@@ -256,6 +342,7 @@ def main() -> int:
     from algoplonk_tpu_torch.ops import _build
     from algoplonk_tpu_torch.ops import curve_kernels as ck
     from algoplonk_tpu_torch.ops import msm as M
+    from algoplonk_tpu_torch.ops import ntt_kernels as nk
     from algoplonk_tpu_torch.plonk import verify as V
     from algoplonk_tpu_torch.plonk.prove import Prover
     from algoplonk_tpu_torch.plonk.marshal import expected_proof_len, marshal_proof
@@ -268,6 +355,16 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     rng = random.Random(0xA1607)
     dev = torch.device("cuda")
+    # each path takes the quotient the default rule gives its size
+    for var in ("AP_QUOTIENT_LM", "AP_NTT_LM_MIN_LOG"):
+        os.environ.pop(var, None)
+
+    def reset_counts():
+        ck.reset_launch_counts()
+        nk.reset_launch_counts()
+
+    def counts():
+        return {**ck.LAUNCHES, **nk.LAUNCHES}
 
     # ---- phase 1: build + kernels vs plain
     t0 = time.perf_counter()
@@ -275,41 +372,48 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     log(_build.build_log.strip())
     kernels = kernel_phase(torch, rng)
+    kernels.append(ntt_kernel_phase(torch))
 
-    # ---- phase 2: the main path
-    SquareChain, chain = square_chain(apt, LOG_N)
     r = apt.BN254.fr.modulus
     x = 0xA1607 % r
-    y = pow(x, 1 << chain, r)
-    ck.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    cc = apt.compile(SquareChain, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device=dev)
-    t_compile = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with msm_timer() as msm_t:
-        vp = cc.verify(SquareChain(x=x, y=y))
-    t_verify = time.perf_counter() - t0
-    blob = vp.marshal_proof()
-    launches = dict(ck.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    log(f"compile (circuit + SRS + setup) at n = {cc.pk.n}: {t_compile:.2f} s")
-    log(f"prove + self-verify: {t_verify:.2f} s; phases (s): "
-        + json.dumps({k: round(v, 4) for k, v in vp.phase_seconds.items()}))
-    log(f"prove MSMs: {msm_t.calls} calls, {msm_t.seconds:.2f} s")
-    log(f"launches on the main path: {launches}")
-    log(f"peak device memory: {peak / 2**30:.3f} GiB")
-    if cc.pk.n != 1 << LOG_N:
-        raise AssertionError(f"domain {cc.pk.n} != 2^{LOG_N}")
-    if len(blob) != expected_proof_len(apt.BN254, 0):
-        raise AssertionError(f"proof blob is {len(blob)} bytes")
-    if V.verify(cc.vk, vp.proof, [(y + 1) % r]):
-        raise AssertionError("a flipped public input was accepted")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+
+    def drive(log_n, expect):
+        """Compile, prove + self-verify and check the 2^log_n SquareChain
+        with the launch counts zeroed just before it; every kernel named in
+        ``expect`` must have launched.  Returns (cc, circuit, y, launches)."""
+        SquareChain, chain = square_chain(apt, log_n)
+        y = pow(x, 1 << chain, r)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cc = apt.compile(SquareChain, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device=dev)
+        t_compile = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with msm_timer() as msm_t:
+            vp = cc.verify(SquareChain(x=x, y=y))
+        t_verify = time.perf_counter() - t0
+        blob = vp.marshal_proof()
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[2^{log_n}] compile (circuit + SRS + setup) at n = {cc.pk.n}: {t_compile:.2f} s")
+        log(f"[2^{log_n}] prove + self-verify: {t_verify:.2f} s; phases (s): "
+            + json.dumps({k: round(v, 4) for k, v in vp.phase_seconds.items()}))
+        log(f"[2^{log_n}] prove MSMs: {msm_t.calls} calls, {msm_t.seconds:.2f} s")
+        log(f"[2^{log_n}] launches: {launches}")
+        log(f"[2^{log_n}] peak device memory: {peak / 2**30:.3f} GiB")
+        if cc.pk.n != 1 << log_n:
+            raise AssertionError(f"domain {cc.pk.n} != 2^{log_n}")
+        if len(blob) != expected_proof_len(apt.BN254, 0):
+            raise AssertionError(f"proof blob is {len(blob)} bytes")
+        if V.verify(cc.vk, vp.proof, [(y + 1) % r]):
+            raise AssertionError("a flipped public input was accepted")
+        missing = [k for k in expect if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the 2^{log_n} path: {missing}")
+        return cc, SquareChain, y, launches
+
+    # ---- phase 2: the 2^16 path
+    cc = drive(LOG_N, ck.KERNELS)[0]
 
     # ---- phase 3: one commit-sized MSM, kernels vs plain vs host
     pts = cc.pk.srs_g1
@@ -338,20 +442,24 @@ def main() -> int:
     host_max = M.HOST_MSM_MAX
     M.HOST_MSM_MAX = 0  # every commit through the device pipeline
     try:
-        blobs = []
+        blobs = {}
         for d in (dev, torch.device("cpu")):
             small = apt.compile(P, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device=d)
-            prover = Prover(small.pk, small.ccs, rng=False)
-            wit = witness_mod.solve(small.ccs, P(a=3, b=4, c=5), commitment_solver=prover.bsb_solver)
-            proof = prover.prove(wit)
-            if not V.verify(small.vk, proof, [3, 4]):
-                raise AssertionError(f"small proof on {d} failed verification")
-            blobs.append(marshal_proof(apt.BN254, proof))
+            for lm in ("0", "1"):
+                os.environ["AP_QUOTIENT_LM"] = lm
+                prover = Prover(small.pk, small.ccs, rng=False)
+                wit = witness_mod.solve(small.ccs, P(a=3, b=4, c=5), commitment_solver=prover.bsb_solver)
+                proof = prover.prove(wit)
+                if not V.verify(small.vk, proof, [3, 4]):
+                    raise AssertionError(f"small proof on {d} failed verification")
+                blobs[d.type, lm] = marshal_proof(apt.BN254, proof)
     finally:
         M.HOST_MSM_MAX = host_max
-    log(f"small circuit, device MSM: GPU proof == CPU proof: {blobs[0] == blobs[1]}")
-    if blobs[0] != blobs[1]:
-        raise AssertionError("GPU and CPU proofs differ")
+        os.environ.pop("AP_QUOTIENT_LM", None)
+    same = len(set(blobs.values())) == 1
+    log(f"small circuit, device MSM: GPU proof == CPU proof, both quotient paths: {same}")
+    if not same:
+        raise AssertionError(f"small-circuit proofs differ: {sorted(blobs)}")
     OneCommit = one_commit(apt)
     t0 = time.perf_counter()
     bcc = apt.compile(OneCommit, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device=dev)
@@ -359,6 +467,33 @@ def main() -> int:
     if len(bvp.marshal_proof()) != expected_proof_len(apt.BN254, 1) or len(bvp.proof.bsb_commitments) != 1:
         raise AssertionError("BSB22 proof has the wrong layout")
     log(f"BSB22 circuit proved + verified: {time.perf_counter() - t0:.2f} s")
+
+    # ---- phase 5: the 2^17 path (four-step quotient, K9)
+    four_step_check(torch)
+    cc, SquareChain, y, launches = drive(LM_LOG_N, (*ck.KERNELS, *nk.KERNELS))
+    lifts = 13 + 2 * len(cc.ccs.commitments)
+    if launches["ntt_pass"] != 2 * (lifts + 1):
+        raise AssertionError(f"K9 launched {launches['ntt_pass']} times, "
+                             f"expected {2 * (lifts + 1)}")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    blobs, r3 = {}, {}
+    for lm in ("1", "0"):
+        os.environ["AP_QUOTIENT_LM"] = lm
+        prover = Prover(cc.pk, cc.ccs, rng=False)
+        wit = witness_mod.solve(cc.ccs, SquareChain(x=x, y=y), commitment_solver=prover.bsb_solver)
+        proof = prover.prove(wit)
+        blobs[lm] = marshal_proof(apt.BN254, proof)
+        r3[lm] = prover.phase_seconds["r3"]
+        log(f"[2^{LM_LOG_N}] Prover(rng=False), AP_QUOTIENT_LM={lm}: phases (s): "
+            + json.dumps({k: round(v, 4) for k, v in prover.phase_seconds.items()}))
+    os.environ.pop("AP_QUOTIENT_LM", None)
+    if not V.verify(cc.vk, proof, [y]):
+        raise AssertionError("the unblinded 2^17 proof failed verification")
+    log(f"[2^{LM_LOG_N}] round 3: four-step {r3['1']:.3f} s, batch-major {r3['0']:.3f} s; "
+        f"proof bytes equal: {blobs['1'] == blobs['0']}")
+    if blobs["1"] != blobs["0"]:
+        raise AssertionError("the two quotient paths give different proofs")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,7 @@
-"""The four CUDA MSM kernels (csrc/msm_kernels.cu) on the GPU, word for
-word against their plain PyTorch versions, and the device MSM and a small
-proof against host arithmetic and the CPU.
+"""The four CUDA MSM kernels (csrc/msm_kernels.cu) and the NTT stage kernel
+(csrc/ntt_kernels.cu) on the GPU, word for word against their plain PyTorch
+versions, and the device MSM, the four-step transform and a small proof
+against host arithmetic and the CPU.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no jax,
 so it runs on a machine without it:
@@ -18,7 +19,10 @@ from algoplonk_tpu_torch._ref.frontend import witness as witness_mod
 from algoplonk_tpu_torch._ref.host import fp as hfp
 from algoplonk_tpu_torch.ops import curve_kernels as ck
 from algoplonk_tpu_torch.ops import msm as M
+from algoplonk_tpu_torch.ops import ntt_kernels as nk
 from algoplonk_tpu_torch.ops.curve import curve_ops
+from algoplonk_tpu_torch.ops.field import field_ops
+from algoplonk_tpu_torch.ops.ntt import ntt_plan
 from algoplonk_tpu_torch.plonk import verify as V
 from algoplonk_tpu_torch.plonk.marshal import marshal_proof
 from algoplonk_tpu_torch.plonk.prove import Prover
@@ -122,20 +126,66 @@ def test_device_msm_two_level(cuda_device):
     assert got == M.host_msm(BN254, pts, scalars)
 
 
+def random_residues(f, n: int, gen) -> torch.Tensor:
+    """n canonical residues [n, W] made on the device: random words with the
+    top word cut below 2^28, so every value is below 2^252 < p."""
+    x = torch.randint(-(2**31), 2**31, (n, f.W), generator=gen, dtype=torch.int64)
+    x[:, -1] &= (1 << 28) - 1
+    return x.to(torch.int32).to(f.device).contiguous()
+
+
+@pytest.mark.parametrize(
+    "N,C,inverse,fused",
+    [(64, 8, False, False), (64, 8, True, True), (64, 2, False, True),
+     (1 << 19, 512, False, True), (1 << 19, 1024, True, False), (1 << 12, 2048, False, True)],
+    ids=["small-dif", "small-dit-fused", "c2-dif-fused", "main-dif-fused", "main-dit",
+         "c2048-dif-fused"],
+)
+def test_k9_ntt_pass(cuda_device, N, C, inverse, fused):
+    f = field_ops(BN254.fr, cuda_device)
+    gen = torch.Generator().manual_seed(N + C)
+    x = random_residues(f, N, gen)
+    tw = f.encode(nk.stage_twiddles("bn254", C, inverse))
+    kw = dict(entry=random_residues(f, N, gen), exit_=random_residues(f, N, gen)) if fused else {}
+    before = nk.LAUNCHES["ntt_pass"]
+    got = nk.ntt_pass(f, x, tw, C, inverse, **kw)
+    torch.cuda.synchronize()
+    assert nk.LAUNCHES["ntt_pass"] == before + 1
+    assert torch.equal(got, nk.plain_ntt_pass(f, x, tw, C, inverse, **kw))
+    assert nk.LAUNCHES["ntt_pass"] == before + 1
+
+
+def test_four_step_coset_matches_radix2(cuda_device):
+    """A coset transform of 2^12 through K9 equals the radix-2 plan's,
+    position for position, and the round trip is the identity."""
+    log_n, g = 12, BN254.coset_shift
+    fsp = nk.four_step_plan("bn254", log_n, cuda_device)
+    f = fsp.f
+    coeffs = random_residues(f, fsp.n, torch.Generator().manual_seed(7))
+    nk.reset_launch_counts()
+    ev = fsp.ntt_scr(coeffs, coset_shift=g)
+    assert nk.LAUNCHES["ntt_pass"] == 2
+    perm = torch.from_numpy(fsp.scramble_perm()).to(cuda_device)
+    assert torch.equal(ev, ntt_plan("bn254", log_n, cuda_device).coset_ntt(coeffs, g)[perm])
+    assert torch.equal(fsp.intt_scr(ev, coset_shift=g), coeffs)
+
+
 def test_small_proof_gpu_equals_cpu(cuda_device, monkeypatch):
     """With every commit through the device MSM, the GPU's proof bytes are
-    the CPU's."""
+    the CPU's, through either quotient path."""
     monkeypatch.setattr(M, "HOST_MSM_MAX", 0)
     P = pythagorean(apt)
     blobs = []
     for device in (cuda_device, torch.device("cpu")):
         cc = apt.compile(P, BN254, apt.SetupName.TEST_ONLY_BN254, device=device)
-        prover = Prover(cc.pk, cc.ccs, rng=False)
-        wit = witness_mod.solve(cc.ccs, P(a=3, b=4, c=5), commitment_solver=prover.bsb_solver)
-        proof = prover.prove(wit)
-        assert V.verify(cc.vk, proof, [3, 4])
-        blobs.append(marshal_proof(BN254, proof))
-    assert blobs[0] == blobs[1]
+        for lm in ("0", "1"):
+            monkeypatch.setenv("AP_QUOTIENT_LM", lm)
+            prover = Prover(cc.pk, cc.ccs, rng=False)
+            wit = witness_mod.solve(cc.ccs, P(a=3, b=4, c=5), commitment_solver=prover.bsb_solver)
+            proof = prover.prove(wit)
+            assert V.verify(cc.vk, proof, [3, 4])
+            blobs.append(marshal_proof(BN254, proof))
+    assert len(set(blobs)) == 1
 
 
 def test_device_msm_of_digits(cuda_device):

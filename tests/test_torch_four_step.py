@@ -1,0 +1,151 @@
+"""The port's four-step NTT (ops/ntt_kernels.py) and four-step quotient
+(``Prover._quotient_lm``) against the JAX reference's ``ops/ntt_pallas.py``
+and ``_quotient_lm``.
+
+The reference's Pallas kernels run in interpret mode on the CPU, as
+tests/test_ntt_pallas.py runs them; the port's K9 runs its plain version.
+Every comparison is exact: decoded ints, position by position (the port's
+row p against the reference's column p), or proof bytes."""
+
+import random
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import algoplonk_tpu as ap
+import algoplonk_tpu_torch as apt
+from algoplonk_tpu.fields import params as jparams
+from algoplonk_tpu.frontend import witness as jax_witness
+from algoplonk_tpu.ops.field import field_ops as jax_field_ops
+from algoplonk_tpu.ops.ntt_pallas import _pass_kernel
+from algoplonk_tpu.ops.ntt_pallas import four_step_plan as jax_four_step_plan
+from algoplonk_tpu.plonk.marshal import marshal_proof as jax_marshal
+from algoplonk_tpu.plonk.prove import Prover as JaxProver
+from algoplonk_tpu_torch._ref.frontend import witness as witness_mod
+from algoplonk_tpu_torch.ops import ntt_kernels as nk
+from algoplonk_tpu_torch.ops.field import field_ops
+from algoplonk_tpu_torch.plonk import verify as V
+from algoplonk_tpu_torch.plonk.marshal import marshal_proof
+from algoplonk_tpu_torch.plonk.prove import Prover
+from torch_parity import jax_ints, one_commit, one_torch_thread, pythagorean  # noqa: F401
+
+BN254 = apt.BN254
+R = BN254.fr.modulus
+G = BN254.coset_shift
+
+
+def rand_ints(seed: int, n: int) -> list[int]:
+    rng = random.Random(seed)
+    return [0, 1, R - 1] + [rng.randrange(R) for _ in range(n - 3)]
+
+
+@pytest.fixture(scope="module")
+def fields():
+    return jax_field_ops(jparams.BN254.fr), field_ops(BN254.fr, "cpu")
+
+
+def to_lm(jf, ints):
+    """ints -> the reference's limbs-major [L, n] Montgomery array."""
+    return jnp.asarray(np.asarray(jf.encode(ints)).T)
+
+
+def from_lm(lm) -> list[int]:
+    return jax_ints(np.asarray(lm).T, jparams.BN254.fr)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["dif", "dit"])
+@pytest.mark.parametrize("fused", [False, True], ids=["bare", "entry_exit"])
+def test_plain_pass_matches_reference_pass_kernel(fields, inverse, fused):
+    """plain_ntt_pass equals the reference's _pass_kernel (which launches K9) at
+    N = 64, C = 8, with and without the fused entry and exit multiplies."""
+    jf, tf = fields
+    N, C = 64, 8
+    xs, en, ex = rand_ints(1, N), rand_ints(2, N), rand_ints(3, N)
+    run = _pass_kernel("bn254", C, N, inverse, fused, fused)
+    kw = dict(entry=to_lm(jf, en), exit_=to_lm(jf, ex)) if fused else {}
+    want = from_lm(run(to_lm(jf, xs), **kw))
+    tw = tf.encode(nk.stage_twiddles("bn254", C, inverse))
+    tkw = dict(entry=tf.encode(en), exit_=tf.encode(ex)) if fused else {}
+    launches = nk.LAUNCHES["ntt_pass"]
+    got = nk.ntt_pass(tf, tf.encode(xs), tw, C, inverse, **tkw)
+    assert tf.decode(got) == want
+    assert nk.LAUNCHES["ntt_pass"] == launches   # CPU tensors: the plain version
+
+
+@pytest.mark.parametrize("log_n,shift", [(4, None), (6, G)], ids=["n16", "n64-coset"])
+def test_transforms_match_reference_four_step(fields, log_n, shift):
+    """ntt_scr / intt_scr against ntt_scr_lm / intt_scr_lm, row p of the
+    port against column p of the reference; the round trip is the identity."""
+    jf, tf = fields
+    coeffs = rand_ints(10 + log_n, 1 << log_n)
+    jfs = jax_four_step_plan("bn254", log_n)
+    tfs = nk.four_step_plan("bn254", log_n)
+    assert (tfs.n1, tfs.n2) == (jfs.n1, jfs.n2)
+    assert np.array_equal(tfs.scramble_perm(), jfs.scramble_perm())
+    got = tfs.ntt_scr(tf.encode(coeffs), coset_shift=shift)
+    want = from_lm(jfs.ntt_scr_lm(to_lm(jf, coeffs), coset_shift=shift))
+    assert tf.decode(got) == want
+    back = tfs.intt_scr(got, coset_shift=shift)
+    assert tf.decode(back) == coeffs
+    assert tf.decode(back) == from_lm(jfs.intt_scr_lm(to_lm(jf, want), coset_shift=shift))
+
+
+def test_scrambled_order_tables_match_reference(fields):
+    jf, tf = fields
+    jfs = jax_four_step_plan("bn254", 6)
+    tfs = nk.four_step_plan("bn254", 6)
+    assert tf.decode(tfs.coset_x_scr(G)) == from_lm(jfs.coset_x_scr(G))
+    pattern = rand_ints(20, 4)
+    assert tf.decode(tfs.tile_by_k_mod4(pattern)) == from_lm(jfs.tile_by_k_mod4(pattern))
+
+
+def test_lm_quotient_proof_matches_jax_and_batch_major(monkeypatch):
+    """Prover(rng=False) through _quotient_lm: the JAX prover's
+    _quotient_lm proof bytes, and the port's own _quotient proof bytes."""
+    JPyth, TPyth = pythagorean(ap), pythagorean(apt)
+    monkeypatch.setenv("AP_QUOTIENT_LM", "1")
+    jcc = ap.compile(JPyth, ap.BN254, ap.SetupName.TEST_ONLY_BN254)
+    jprover = JaxProver(jcc.pk, jcc.ccs, rng=False)
+    jwit = jax_witness.solve(jcc.ccs, JPyth(a=3, b=4, c=5))
+    want = jax_marshal(ap.BN254, jprover.prove(jwit))
+
+    cc = apt.compile(TPyth, BN254, apt.SetupName.TEST_ONLY_BN254, device="cpu")
+    blobs = {}
+    for flag in ("1", "0"):
+        monkeypatch.setenv("AP_QUOTIENT_LM", flag)
+        prover = Prover(cc.pk, cc.ccs, rng=False)
+        assert prover._use_lm_quotient() == (flag == "1")
+        wit = witness_mod.solve(cc.ccs, TPyth(a=3, b=4, c=5), commitment_solver=prover.bsb_solver)
+        proof = prover.prove(wit)
+        assert V.verify(cc.vk, proof, [3, 4])
+        blobs[flag] = marshal_proof(BN254, proof)
+    assert blobs["1"] == want
+    assert blobs["0"] == want
+
+
+def test_lm_quotient_path_rule(monkeypatch):
+    """The reference's rule: forced by AP_QUOTIENT_LM, otherwise from a
+    coset of 2^AP_NTT_LM_MIN_LOG (default 19) on."""
+    cc = apt.compile(pythagorean(apt), BN254, apt.SetupName.TEST_ONLY_BN254, device="cpu")
+    prover = Prover(cc.pk, cc.ccs, rng=False)
+    log4 = cc.pk.log_n + 2
+    monkeypatch.delenv("AP_QUOTIENT_LM", raising=False)
+    monkeypatch.delenv("AP_NTT_LM_MIN_LOG", raising=False)
+    assert not prover._use_lm_quotient()
+    monkeypatch.setenv("AP_NTT_LM_MIN_LOG", str(log4))
+    assert prover._use_lm_quotient()
+    monkeypatch.setenv("AP_NTT_LM_MIN_LOG", str(log4 + 1))
+    assert not prover._use_lm_quotient()
+    monkeypatch.setenv("AP_QUOTIENT_LM", "1")
+    assert prover._use_lm_quotient()
+
+
+def test_bsb22_prove_verify_through_four_step(monkeypatch):
+    monkeypatch.setenv("AP_QUOTIENT_LM", "1")
+    TOne = one_commit(apt)
+    cc = apt.compile(TOne, BN254, apt.SetupName.TEST_ONLY_BN254, device="cpu")
+    vp = cc.verify(TOne(x=49, y=7))
+    assert len(vp.proof.bsb_commitments) == 1
+    assert V.verify(cc.vk, vp.proof, [49])
+    assert not V.verify(cc.vk, vp.proof, [50])

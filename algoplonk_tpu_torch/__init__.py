@@ -1,42 +1,49 @@
 """algoplonk_tpu_torch — the PLONK prover of ``algoplonk_tpu`` in PyTorch,
-with its MSM kernels in CUDA for NVIDIA Hopper (sm_90a).
+with its TPU kernels rewritten in CUDA for NVIDIA Hopper (sm_90a).
 
 Top-level API, mirroring ``algoplonk_tpu/__init__.py`` with an explicit
 device:
 
-    cc = compile(MyCircuit, BN254, SetupName.TEST_ONLY_BN254, device="cuda")
+    cc = compile(MyCircuit, BN254, SetupName.TEST_ONLY_BN254)   # on the card
     vp = cc.verify(MyCircuit(a=3, b=4, c=5))       # prove + self-verify
     vp.export_proof_and_public_inputs("proof.bin", "public_inputs.bin")
 
-The package imports torch and never jax.  The reference modules that import
-no jax (fields, frontend, host, the transcript, the setup registry) are
-shared through ``_ref`` rather than copied; see ``_ref/__init__.py``.  Circuits
-for this package subclass *its* ``Circuit`` and use *its* inputs.
+Both of AlgoPlonk's curves are served, BN254 and BLS12-381.  Every entry
+point runs on the CUDA device unless the caller passes ``device="cpu"``;
+``compile`` refuses to start without a card rather than fall back to the
+host.
+
+The package imports torch and never jax, nor anything of ``algoplonk_tpu``:
+the reference modules that need no jax (fields, frontend, host, the
+transcript, the setup registry) are copied here.  Circuits for this package
+subclass *its* ``Circuit`` and use *its* inputs.
 
 On a CPU tensor every op, kernels included, runs plain PyTorch; on a CUDA
-tensor the four MSM kernels (``ops/curve_kernels.py``) are built with nvcc at
-first use and launched.
+tensor the kernels (``ops/curve_kernels.py``, ``ops/ntt_kernels.py``) are
+built with nvcc at first use and launched.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ._ref.fields.params import (
+import torch
+
+from .fields.params import (
     BLS12_381,
     BN254,
     CurveParams,
     gnark_compat_enabled,
     set_gnark_compat,
 )
-from ._ref.frontend.api import (
+from .frontend.api import (
     Circuit,
     CompiledConstraintSystem,
     PublicInput,
     SecretInput,
     compile_circuit,
 )
-from ._ref.frontend import witness as witness_mod
+from .frontend import witness as witness_mod
 from .plonk import marshal as marshal_mod
 from .plonk import verify as verify_mod
 from .plonk.keys import ProvingKey, VerifyingKey
@@ -104,11 +111,15 @@ class VerifiedProof:
 
 
 def compile(circuit_cls, curve: CurveParams, setup_name: SetupName,
-            device="cpu") -> CompiledCircuit:
+            device="cuda") -> CompiledCircuit:
     """Compile a circuit and run the (trusted or test-only) setup, with the
-    keys on ``device``."""
-    if curve.name != "bn254":
-        raise ValueError(f"unsupported curve for this port: {curve.name}")
+    keys on ``device`` (the CUDA device unless the caller asks for the
+    CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device=\"cpu\" to compile and prove on the host"
+        )
     info = get_setup(setup_name)
     if info is None:
         raise ValueError(f"unknown setup: {setup_name}")

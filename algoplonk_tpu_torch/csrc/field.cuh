@@ -1,5 +1,5 @@
-// Montgomery field core inlined by every kernel of msm_kernels.cu and
-// ntt_kernels.cu.
+// Montgomery field core inlined by every kernel of msm_kernels.cu,
+// curve_kernels.cu and ntt_kernels.cu.
 //
 // Replaces algoplonk_tpu/ops/field_pallas.py:FieldVals (with field_consts,
 // field_mats and sub_bias_limbs), the field arithmetic that the TPU kernels
@@ -16,8 +16,8 @@
 // registers, fully unrolls the word loops so all words stay in registers, and
 // leaves lazy reduction to a later change.
 //
-// Everything is templated on W: BN254 uses W = 8 (R = 2^256); BLS12-381's
-// base field needs W = 12.  Requires p < R / 2.
+// Everything is templated on W: BN254 and BLS12-381's scalar field use W = 8
+// (R = 2^256), BLS12-381's base field W = 12 (R = 2^384).  Requires p < R / 2.
 
 #pragma once
 
@@ -90,6 +90,13 @@ __device__ __forceinline__ void sub_mod(uint32_t* out, const uint32_t* a,
     out[i] = (uint32_t)cur;
     carry = cur >> 32;
   }
+}
+
+// a <- -a mod p   (a < p)
+template <int W>
+__device__ __forceinline__ void neg_mod(uint32_t* a, const uint32_t* p) {
+  uint32_t zero[W] = {0};
+  sub_mod<W>(a, zero, a, p);
 }
 
 // out = a b R^-1 mod p, CIOS.  For a < R and b < p the pre-subtraction value

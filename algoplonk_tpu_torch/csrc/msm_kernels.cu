@@ -16,14 +16,21 @@
 // stayed in VMEM there.
 //
 // What bounds them on the H100: 32-bit integer multiply throughput and
-// registers.  A mixed add is 11 Montgomery multiplies (~3,000 integer
-// instructions at W = 8) on ~100 live words per lane; memory traffic per add
-// is 24 words of accumulator (once per kernel) plus 16 words per gathered
-// point.  The design answers with one lane per thread, fully unrolled word
-// loops, strict (canonical) arithmetic so no bound tracking is needed, and
-// 128-thread blocks so the register file, not the block size, sets
-// occupancy.  Making them fast (lazy reduction, PTX carry chains, shared
-// point tables) is later work.
+// registers.  A mixed add is 13 Montgomery multiplies (~3,500 integer
+// multiply instructions at W = 8, ~7,800 at W = 12) on ~100 (W = 8) or ~150
+// (W = 12) live words per lane; memory traffic per add is 3W words of
+// accumulator (once per kernel) plus 2W words per gathered point.  The design
+// answers with one lane per thread, fully unrolled word loops, strict
+// (canonical) arithmetic so no bound tracking is needed, and 128-thread blocks
+// so the register file, not the block size, sets occupancy.  At W = 12 a
+// projective point is 36 words and ptxas spills (chip_smoke.py prints its
+// report).  Making them fast (lazy reduction, PTX carry chains, shared point
+// tables) is later work.
+//
+// Every kernel is a template on W.  The file is compiled once for W = 8
+// (BN254's fields) and once for W = 12 (BLS12-381's base field), and each
+// object exports its entry points under names that end in its width
+// (lanes.cuh: ap_canon_w8, ap_canon_w12).
 //
 // K1 also fuses the point gather that the TPU path staged through HBM
 // (algoplonk_tpu/ops/msm.py:271-273): it reads the [N+1, 2W] flat affine table
@@ -38,171 +45,151 @@
 #include <cstdint>
 
 #include "curve.cuh"
+#include "lanes.cuh"
 
 namespace {
 
-constexpr int kW = 8;            // BN254: both fields are 8 words
-constexpr int kThreads = 128;
+using ap::kThreads;
 constexpr int kSignShift = 26;   // ops/msm.py SIGN_SHIFT
 constexpr int kRowMask = (1 << kSignShift) - 1;
-
-using Consts = ap::CurveConsts<kW>;
-using P = ap::Proj<kW>;
-
-template <int W>
-__device__ __forceinline__ void load_proj(ap::Proj<W>& q, const uint32_t* src,
-                                          int64_t B, int64_t b) {
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    q.x[w] = src[(0 * W + w) * B + b];
-    q.y[w] = src[(1 * W + w) * B + b];
-    q.z[w] = src[(2 * W + w) * B + b];
-  }
-}
-
-template <int W>
-__device__ __forceinline__ void store_proj(uint32_t* dst, const ap::Proj<W>& q,
-                                           int64_t B, int64_t b) {
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    dst[(0 * W + w) * B + b] = q.x[w];
-    dst[(1 * W + w) * B + b] = q.y[w];
-    dst[(2 * W + w) * B + b] = q.z[w];
-  }
-}
+using ap::blocks_for;
+using ap::load_proj;
+using ap::store_proj;
 
 // K1: acc [3, W, B] + g signed affine points gathered from pts [nrows, 2W]
 // at packed [g, B] -> out [3, W, B].
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 mixed_add_signed_multi_kernel(const uint32_t* __restrict__ acc,
                               const uint32_t* __restrict__ pts,
                               const int32_t* __restrict__ packed,
                               uint32_t* __restrict__ out, int64_t B, int g,
-                              int64_t nrows, Consts cc) {
+                              int64_t nrows, ap::CurveConsts<W> cc) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  P a;
-  load_proj<kW>(a, acc, B, b);
+  ap::Proj<W> a;
+  load_proj<W>(a, acc, B, b);
   for (int k = 0; k < g; ++k) {
     const int32_t pk = packed[(int64_t)k * B + b];
     int64_t row = pk & kRowMask;
     if (row > nrows - 1) row = nrows - 1;
     const bool neg = ((pk >> kSignShift) == 1);
-    uint32_t x2[kW], y2[kW];
-    const uint32_t* src = pts + row * (2 * kW);
+    uint32_t x2[W], y2[W];
+    const uint32_t* src = pts + row * (2 * W);
 #pragma unroll
-    for (int w = 0; w < kW; ++w) {
+    for (int w = 0; w < W; ++w) {
       x2[w] = src[w];
-      y2[w] = src[kW + w];
+      y2[w] = src[W + w];
     }
     // identity from the raw coordinates, before the sign is applied
-    const bool q_inf = ap::is_zero<kW>(x2) && ap::is_zero<kW>(y2);
-    if (neg) {
-      uint32_t zero[kW] = {0};
-      ap::sub_mod<kW>(y2, zero, y2, cc.f.p);
-    }
-    ap::mixed_add<kW>(a, x2, y2, q_inf, cc);
+    const bool q_inf = ap::is_zero<W>(x2) && ap::is_zero<W>(y2);
+    if (neg) ap::neg_mod<W>(y2, cc.f.p);
+    ap::mixed_add<W>(a, x2, y2, q_inf, cc);
   }
-  store_proj<kW>(out, a, B, b);
+  store_proj<W>(out, a, B, b);
 }
 
 // K2: acc [3, W, B] + qs[0..g) ([3g, W, B]), emitting the accumulator after
 // every step: out[3k:3k+3] = acc + qs[0] + ... + qs[k].
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 jac_add_multi_scan_kernel(const uint32_t* __restrict__ acc,
                           const uint32_t* __restrict__ qs,
                           uint32_t* __restrict__ out, int64_t B, int g,
-                          Consts cc) {
+                          ap::CurveConsts<W> cc) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  P a, q;
-  load_proj<kW>(a, acc, B, b);
+  ap::Proj<W> a, q;
+  load_proj<W>(a, acc, B, b);
   for (int k = 0; k < g; ++k) {
-    load_proj<kW>(q, qs + (int64_t)3 * k * kW * B, B, b);
-    ap::jac_add<kW>(a, a, q, cc);
-    store_proj<kW>(out + (int64_t)3 * k * kW * B, a, B, b);
+    load_proj<W>(q, qs + (int64_t)3 * k * W * B, B, b);
+    ap::jac_add<W>(a, a, q, cc);
+    store_proj<W>(out + (int64_t)3 * k * W * B, a, B, b);
   }
 }
 
 // K3: p [3, W, B] + q [3, W, B] -> out [3, W, B].
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 jac_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
-               uint32_t* __restrict__ out, int64_t B, Consts cc) {
+               uint32_t* __restrict__ out, int64_t B, ap::CurveConsts<W> cc) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  P a, c;
-  load_proj<kW>(a, p, B, b);
-  load_proj<kW>(c, q, B, b);
-  ap::jac_add<kW>(a, a, c, cc);
-  store_proj<kW>(out, a, B, b);
+  ap::Proj<W> a, c;
+  load_proj<W>(a, p, B, b);
+  load_proj<W>(c, q, B, b);
+  ap::jac_add<W>(a, a, c, cc);
+  store_proj<W>(out, a, B, b);
 }
 
 // K4: x [R, W, B] (any W-word values) -> canonical x mod p, one Montgomery
 // multiply by the Montgomery one per element.
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 canon_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-             int64_t rows, int64_t B, Consts cc) {
+             int64_t rows, int64_t B, ap::CurveConsts<W> cc) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows * B) return;
   const int64_t r = i / B, b = i % B;
-  uint32_t v[kW];
+  uint32_t v[W];
 #pragma unroll
-  for (int w = 0; w < kW; ++w) v[w] = x[(r * kW + w) * B + b];
-  ap::mont_mul<kW>(v, v, cc.f.one, cc.f);
+  for (int w = 0; w < W; ++w) v[w] = x[(r * W + w) * B + b];
+  ap::mont_mul<W>(v, v, cc.f.one, cc.f);
 #pragma unroll
-  for (int w = 0; w < kW; ++w) out[(r * kW + w) * B + b] = v[w];
-}
-
-inline unsigned blocks_for(int64_t n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+  for (int w = 0; w < W; ++w) out[(r * W + w) * B + b] = v[w];
 }
 
 }  // namespace
 
 extern "C" {
 
-// consts: host pointer to the packed Consts words (p, n0, one, b3).
-int ap_mixed_add_signed_multi(const void* acc, const void* pts,
-                              const void* packed, void* out, int64_t B, int g,
-                              int64_t nrows, const void* consts,
-                              void* stream) {
-  const Consts cc = *static_cast<const Consts*>(consts);
+// consts: host pointer to the packed CurveConsts<AP_W> words (p, n0, one, b3).
+int AP_ENTRY(ap_mixed_add_signed_multi)(const void* acc, const void* pts,
+                                        const void* packed, void* out,
+                                        int64_t B, int g, int64_t nrows,
+                                        const void* consts, void* stream) {
+  const auto cc = *static_cast<const ap::CurveConsts<AP_W>*>(consts);
   if (B > 0)
-    mixed_add_signed_multi_kernel<<<blocks_for(B), kThreads, 0,
-                                    (cudaStream_t)stream>>>(
+    mixed_add_signed_multi_kernel<AP_W><<<blocks_for(B), kThreads, 0,
+                                          (cudaStream_t)stream>>>(
         (const uint32_t*)acc, (const uint32_t*)pts, (const int32_t*)packed,
         (uint32_t*)out, B, g, nrows, cc);
   return (int)cudaGetLastError();
 }
 
-int ap_jac_add_multi_scan(const void* acc, const void* qs, void* out,
-                          int64_t B, int g, const void* consts, void* stream) {
-  const Consts cc = *static_cast<const Consts*>(consts);
+int AP_ENTRY(ap_jac_add_multi_scan)(const void* acc, const void* qs, void* out,
+                                    int64_t B, int g, const void* consts,
+                                    void* stream) {
+  const auto cc = *static_cast<const ap::CurveConsts<AP_W>*>(consts);
   if (B > 0)
-    jac_add_multi_scan_kernel<<<blocks_for(B), kThreads, 0,
-                                (cudaStream_t)stream>>>(
+    jac_add_multi_scan_kernel<AP_W><<<blocks_for(B), kThreads, 0,
+                                      (cudaStream_t)stream>>>(
         (const uint32_t*)acc, (const uint32_t*)qs, (uint32_t*)out, B, g, cc);
   return (int)cudaGetLastError();
 }
 
-int ap_jac_add(const void* p, const void* q, void* out, int64_t B,
-               const void* consts, void* stream) {
-  const Consts cc = *static_cast<const Consts*>(consts);
+int AP_ENTRY(ap_jac_add)(const void* p, const void* q, void* out, int64_t B,
+                         const void* consts, void* stream) {
+  const auto cc = *static_cast<const ap::CurveConsts<AP_W>*>(consts);
   if (B > 0)
-    jac_add_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+    jac_add_kernel<AP_W><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, B, cc);
   return (int)cudaGetLastError();
 }
 
-int ap_canon(const void* x, void* out, int64_t rows, int64_t B,
-             const void* consts, void* stream) {
-  const Consts cc = *static_cast<const Consts*>(consts);
+int AP_ENTRY(ap_canon)(const void* x, void* out, int64_t rows, int64_t B,
+                       const void* consts, void* stream) {
+  const auto cc = *static_cast<const ap::CurveConsts<AP_W>*>(consts);
   if (rows * B > 0)
-    canon_kernel<<<blocks_for(rows * B), kThreads, 0, (cudaStream_t)stream>>>(
+    canon_kernel<AP_W><<<blocks_for(rows * B), kThreads, 0,
+                         (cudaStream_t)stream>>>(
         (const uint32_t*)x, (uint32_t*)out, rows, B, cc);
   return (int)cudaGetLastError();
 }
 
-int ap_consts_words() { return (int)(sizeof(Consts) / sizeof(uint32_t)); }
+// Words of CurveConsts<AP_W>.
+int AP_ENTRY(ap_consts_words)() {
+  return (int)(sizeof(ap::CurveConsts<AP_W>) / sizeof(uint32_t));
+}
 
 }  // extern "C"

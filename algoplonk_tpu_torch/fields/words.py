@@ -2,10 +2,11 @@
 
 Representation: ``[..., W]`` int32 tensors holding the little-endian 32-bit
 words of a canonical Montgomery residue (the int32 is the bit pattern of the
-uint32 word).  Both BN254 fields use W = 8 and R = 2^256; BLS12-381's base
-field will need W = 12.  Every Montgomery constant is derived here from Python ints in
-this R; none is copied from the reference's 12-bit limb arrays (whose R is
-2^264 for BN254, fields/params.py).
+uint32 word).  Both BN254 fields and BLS12-381's scalar field use W = 8 and
+R = 2^256; BLS12-381's 381-bit base field uses W = 12 and R = 2^384.  Every
+Montgomery constant is derived here from Python ints in this R; none is copied
+from the reference's 12-bit limb arrays (whose R is 2^264 for BN254,
+fields/params.py).
 
 Parity with the reference is checked on values: its limb arrays go through
 canonical Python ints before they become words (``jax_limbs_to_mont_words``,
@@ -19,8 +20,8 @@ import functools
 
 import numpy as np
 
-from .._ref.fields.params import FieldParams
-from .._ref.fields import limbs as ref_limbs
+from .params import FieldParams
+from . import limbs as ref_limbs
 
 WORD_BITS = 32
 
@@ -60,6 +61,8 @@ def word_field(fp: FieldParams) -> WordField:
     p = fp.modulus
     W = words_for(fp)
     R = 1 << (WORD_BITS * W)
+    if not 2 * p < R:
+        raise ValueError(f"{fp.name}: the kernels and the plain REDC need p < R/2")
     n_prime = (-pow(p, -1, R)) % R
     return WordField(
         fp=fp, W=W, R=R, r=R % p, r2=R * R % p, n_prime=n_prime,

@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from .._ref.fields.params import CurveParams
+from ..fields.params import CurveParams
 from ..fields.words import ints_to_mont_words, mont_words_to_ints, word_field
 from .field import FieldOps, field_ops
 
@@ -188,5 +188,5 @@ def _curve_ops(curve: CurveParams, device: str) -> CurveOps:
     return CurveOps(curve, device)
 
 
-def curve_ops(curve: CurveParams, device="cpu") -> CurveOps:
+def curve_ops(curve: CurveParams, device="cuda") -> CurveOps:
     return _curve_ops(curve, str(torch.device(device)))

@@ -1,21 +1,31 @@
-"""Wrappers of the four MSM kernels (csrc/msm_kernels.cu), each beside its
-plain PyTorch version.
+"""Wrappers of the curve and field kernels (csrc/msm_kernels.cu,
+csrc/curve_kernels.cu), each beside its plain PyTorch version.
 
 Counterparts of the reference ``ops/curve_pallas.py`` factories:
 
-  ==============================  =======================================
-  port (here)                     reference (TPU, Pallas)
-  ==============================  =======================================
-  ``mixed_add_signed_multi``      ``pallas_mixed_add_signed_multi`` :250
-  ``jac_add_multi_scan``          ``pallas_jac_add_multi_scan``     :357
-  ``jac_add``                     ``pallas_jac_add``                :292
-  ``canon``                       ``pallas_canon``                  :404
-  ==============================  =======================================
+  ====  ==========================  =======================================
+        port (here)                 reference (TPU, Pallas)
+  ====  ==========================  =======================================
+  K1    ``mixed_add_signed_multi``  ``pallas_mixed_add_signed_multi`` :250
+  K2    ``jac_add_multi_scan``      ``pallas_jac_add_multi_scan``     :357
+  K3    ``jac_add``                 ``pallas_jac_add``                :292
+  K4    ``canon``                   ``pallas_canon``                  :404
+  K5    ``mixed_add``               ``pallas_mixed_add``              :156
+  K6    ``mixed_add_signed``        ``pallas_mixed_add_signed``       :201
+  K7    ``jac_add_multi``           ``pallas_jac_add_multi``          :324
+  K8    ``field_mul``               ``pallas_field_mul``              :447
+  ====  ==========================  =======================================
 
-Every array is limbs-major ``[coord, W, B]`` int32 (lane axis last), as the
-TPU kernels take it.  A tensor on the CPU goes to the plain version; a CUDA
-tensor launches the kernel or raises, with no fallback.  Each wrapper counts
-its kernel launches in ``LAUNCHES``; plain calls are not counted.
+K1-K4 are the MSM's (ops/msm.py); K5-K8 serve no prove path, in the port as
+in the reference, whose MSM does not call them either.  Every curve kernel
+takes limbs-major ``[coord, W, B]`` int32 (lane axis last), as the TPU
+kernels take it; K8 takes batch-major ``[N, W]``.  Each is built for W = 8
+(BN254, BLS12-381's Fr) and W = 12 (BLS12-381's Fp).
+
+A tensor on the CPU goes to the plain version; a CUDA tensor launches the
+kernel or raises, with no fallback.  Each wrapper counts its kernel launches
+in ``LAUNCHES`` (by kernel) and ``LAUNCHES_BY_WIDTH`` (by kernel and W);
+plain calls are not counted.
 """
 
 from __future__ import annotations
@@ -25,20 +35,31 @@ import ctypes
 import numpy as np
 import torch
 
-from ..fields.words import ints_to_mont_words, ints_to_words
-from ._build import check_tensor, raise_on, stream_of
+from ..fields.words import WordField, ints_to_mont_words, ints_to_words
+from ._build import WIDTHS, check_tensor, entry, raise_on, stream_of
 from .curve import CurveOps
+from .field import FieldOps
 
 SIGN_SHIFT = 26  # bit of a packed member index carrying the digit sign
 ROW_MASK = (1 << SIGN_SHIFT) - 1
 
-KERNELS = ("mixed_add_signed_multi", "jac_add_multi_scan", "jac_add", "canon")
+MSM_KERNELS = ("mixed_add_signed_multi", "jac_add_multi_scan", "jac_add", "canon")
+OFF_PATH_KERNELS = ("mixed_add", "mixed_add_signed", "jac_add_multi", "field_mul")
+KERNELS = MSM_KERNELS + OFF_PATH_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES_BY_WIDTH = dict.fromkeys(((k, w) for k in KERNELS for w in WIDTHS), 0)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
+    for key in LAUNCHES_BY_WIDTH:
+        LAUNCHES_BY_WIDTH[key] = 0
+
+
+def _count(name: str, W: int) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_WIDTH[name, W] += 1
 
 
 # ------------------------------------------------------------ plain versions
@@ -83,38 +104,72 @@ def plain_canon(ops: CurveOps, x):
     return f.reduce(f.mul(x.transpose(1, 2), f.one)).transpose(1, 2).contiguous()
 
 
+def plain_mixed_add(ops: CurveOps, acc, pts):
+    return _lm(ops.jac_add_affine(_bm(acc), _bm(pts)))
+
+
+def plain_mixed_add_signed(ops: CurveOps, acc, pts, neg):
+    p = _bm(pts)
+    y = ops.f.select(neg[0] != 0, ops.f.neg(p[:, 1]), p[:, 1])
+    return _lm(ops.jac_add_affine(_bm(acc), torch.stack([p[:, 0], y], dim=1)))
+
+
+def plain_jac_add_multi(ops: CurveOps, acc, qs):
+    a = _bm(acc)
+    for k in range(qs.shape[0] // 3):
+        a = ops.jac_add(a, _bm(qs[3 * k : 3 * k + 3]))
+    return _lm(a)
+
+
+def plain_field_mul(f: FieldOps, a, b):
+    return f.mul(a, b)
+
+
 # ------------------------------------------------------------------ kernels
 
 _CONSTS: dict = {}
 
 
-def _consts(ops: CurveOps):
-    """The packed CurveConsts words (p, n0, one, b3) in host memory."""
-    key = ops.curve.name
+def field_consts(wf: WordField):
+    """The packed FieldConsts<W> words (p, n0, one) in host memory."""
+    key = ("field", wf.modulus)
     buf = _CONSTS.get(key)
     if buf is None:
-        wf = ops.wf
         words = np.concatenate([
             ints_to_words([wf.modulus], wf.W)[0],
             np.asarray([wf.n0], np.uint32).view(np.int32),
             ints_to_words([wf.r], wf.W)[0],
-            ints_to_mont_words([3 * ops.curve.b], wf)[0],
         ])
-        buf = (ctypes.c_int32 * words.size)(*words.tolist())
-        _CONSTS[key] = buf
+        buf = _CONSTS[key] = (ctypes.c_int32 * words.size)(*words.tolist())
     return buf
 
 
-def _lib(ops: CurveOps):
-    from ._build import library
+def _consts(ops: CurveOps):
+    """The packed CurveConsts<W> words (p, n0, one, b3) in host memory."""
+    key = ("curve", ops.curve.name)
+    buf = _CONSTS.get(key)
+    if buf is None:
+        wf = ops.wf
+        words = np.concatenate([
+            np.frombuffer(field_consts(wf), np.int32),
+            ints_to_mont_words([3 * ops.curve.b], wf)[0],
+        ])
+        buf = _CONSTS[key] = (ctypes.c_int32 * words.size)(*words.tolist())
+    return buf
 
-    if ops.W != 8:
-        raise NotImplementedError("the kernels are built for W = 8 (BN254)")
-    lib = library()
-    n = lib.ap_consts_words()
-    if n != 3 * ops.W + 1:
-        raise RuntimeError(f"kernel constant layout mismatch ({n} words)")
-    return lib
+
+_LAYOUT_CHECKED: set = set()
+
+
+def _kernel(name: str, W: int):
+    """The width-W C entry point of kernel ``name``, once the library is
+    known to take the constant layouts packed above."""
+    if W not in _LAYOUT_CHECKED:
+        words = (entry("ap_consts_words", W)(), entry("ap_field_consts_words", W)())
+        if words != (3 * W + 1, 2 * W + 1):
+            raise RuntimeError(f"kernel constant layout mismatch ({words} words at W = {W})")
+        _LAYOUT_CHECKED.add(W)
+    return entry(f"ap_{name}", W)
 
 
 def mixed_add_signed_multi(ops: CurveOps, acc, pts_flat, packed):
@@ -129,14 +184,13 @@ def mixed_add_signed_multi(ops: CurveOps, acc, pts_flat, packed):
     check_tensor("acc", acc, (3, W, B))
     check_tensor("pts_flat", pts_flat, (pts_flat.shape[0], 2 * W))
     check_tensor("packed", packed, (g, B))
-    lib = _lib(ops)
     out = torch.empty_like(acc)
-    rc = lib.ap_mixed_add_signed_multi(
+    rc = _kernel("mixed_add_signed_multi", W)(
         acc.data_ptr(), pts_flat.data_ptr(), packed.data_ptr(), out.data_ptr(),
         B, g, pts_flat.shape[0], _consts(ops), stream_of(acc),
     )
     raise_on(rc, "mixed_add_signed_multi")
-    LAUNCHES["mixed_add_signed_multi"] += 1
+    _count("mixed_add_signed_multi", W)
     return out
 
 
@@ -150,14 +204,13 @@ def jac_add_multi_scan(ops: CurveOps, acc, qs):
     g = qs.shape[0] // 3
     check_tensor("acc", acc, (3, W, B))
     check_tensor("qs", qs, (3 * g, W, B))
-    lib = _lib(ops)
     out = torch.empty_like(qs)
-    rc = lib.ap_jac_add_multi_scan(
+    rc = _kernel("jac_add_multi_scan", W)(
         acc.data_ptr(), qs.data_ptr(), out.data_ptr(), B, g, _consts(ops),
         stream_of(acc),
     )
     raise_on(rc, "jac_add_multi_scan")
-    LAUNCHES["jac_add_multi_scan"] += 1
+    _count("jac_add_multi_scan", W)
     return out
 
 
@@ -169,13 +222,12 @@ def jac_add(ops: CurveOps, p, q):
     B = p.shape[-1]
     check_tensor("p", p, (3, W, B))
     check_tensor("q", q, (3, W, B))
-    lib = _lib(ops)
     out = torch.empty_like(p)
-    rc = lib.ap_jac_add(
+    rc = _kernel("jac_add", W)(
         p.data_ptr(), q.data_ptr(), out.data_ptr(), B, _consts(ops), stream_of(p)
     )
     raise_on(rc, "jac_add")
-    LAUNCHES["jac_add"] += 1
+    _count("jac_add", W)
     return out
 
 
@@ -186,9 +238,84 @@ def canon(ops: CurveOps, x):
     W = ops.W
     R, B = x.shape[0], x.shape[-1]
     check_tensor("x", x, (R, W, B))
-    lib = _lib(ops)
     out = torch.empty_like(x)
-    rc = lib.ap_canon(x.data_ptr(), out.data_ptr(), R, B, _consts(ops), stream_of(x))
+    rc = _kernel("canon", W)(x.data_ptr(), out.data_ptr(), R, B, _consts(ops), stream_of(x))
     raise_on(rc, "canon")
-    LAUNCHES["canon"] += 1
+    _count("canon", W)
+    return out
+
+
+def mixed_add(ops: CurveOps, acc, pts):
+    """K5: acc [3, W, B] plus affine pts [2, W, B] ((0, 0) is the identity)
+    -> [3, W, B]."""
+    if acc.device.type == "cpu":
+        return plain_mixed_add(ops, acc, pts)
+    W = ops.W
+    B = acc.shape[-1]
+    check_tensor("acc", acc, (3, W, B))
+    check_tensor("pts", pts, (2, W, B))
+    out = torch.empty_like(acc)
+    rc = _kernel("mixed_add", W)(
+        acc.data_ptr(), pts.data_ptr(), out.data_ptr(), B, _consts(ops), stream_of(acc)
+    )
+    raise_on(rc, "mixed_add")
+    _count("mixed_add", W)
+    return out
+
+
+def mixed_add_signed(ops: CurveOps, acc, pts, neg):
+    """K6: as K5, with pts negated on lanes where neg [1, B] is non-zero (the
+    identity is detected before the negation)."""
+    if acc.device.type == "cpu":
+        return plain_mixed_add_signed(ops, acc, pts, neg)
+    W = ops.W
+    B = acc.shape[-1]
+    check_tensor("acc", acc, (3, W, B))
+    check_tensor("pts", pts, (2, W, B))
+    check_tensor("neg", neg, (1, B))
+    out = torch.empty_like(acc)
+    rc = _kernel("mixed_add_signed", W)(
+        acc.data_ptr(), pts.data_ptr(), neg.data_ptr(), out.data_ptr(), B,
+        _consts(ops), stream_of(acc),
+    )
+    raise_on(rc, "mixed_add_signed")
+    _count("mixed_add_signed", W)
+    return out
+
+
+def jac_add_multi(ops: CurveOps, acc, qs):
+    """K7: acc [3, W, B] plus g projective points qs [3g, W, B], summed in
+    order -> the final accumulator [3, W, B]."""
+    if acc.device.type == "cpu":
+        return plain_jac_add_multi(ops, acc, qs)
+    W = ops.W
+    B = acc.shape[-1]
+    g = qs.shape[0] // 3
+    check_tensor("acc", acc, (3, W, B))
+    check_tensor("qs", qs, (3 * g, W, B))
+    out = torch.empty_like(acc)
+    rc = _kernel("jac_add_multi", W)(
+        acc.data_ptr(), qs.data_ptr(), out.data_ptr(), B, g, _consts(ops),
+        stream_of(acc),
+    )
+    raise_on(rc, "jac_add_multi")
+    _count("jac_add_multi", W)
+    return out
+
+
+def field_mul(f: FieldOps, a, b):
+    """K8: strict Montgomery product of a, b [N, W] (canonical residues,
+    batch-major) -> [N, W]."""
+    if a.device.type == "cpu":
+        return plain_field_mul(f, a, b)
+    W = f.W
+    N = a.shape[0]
+    check_tensor("a", a, (N, W))
+    check_tensor("b", b, (N, W))
+    out = torch.empty_like(a)
+    rc = _kernel("field_mul", W)(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), N, field_consts(f.wf), stream_of(a)
+    )
+    raise_on(rc, "field_mul")
+    _count("field_mul", W)
     return out

@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from .._ref.fields.params import FieldParams
+from ..fields.params import FieldParams
 from ..fields.words import WordField, ints_to_words, word_field, words_to_ints
 
 _DB = 16                    # digit bits
@@ -234,5 +234,5 @@ def _field_ops(fp: FieldParams, device: str) -> FieldOps:
     return FieldOps(fp, device)
 
 
-def field_ops(fp: FieldParams, device="cpu") -> FieldOps:
+def field_ops(fp: FieldParams, device="cuda") -> FieldOps:
     return _field_ops(fp, str(torch.device(device)))

@@ -28,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from .._ref.fields.params import CurveParams
+from ..fields.params import CurveParams
 from ..fields.words import mont_words_to_ints
 from .curve import CurveOps, curve_ops
 from .curve_kernels import (
@@ -128,7 +128,9 @@ def _inf_lm(ops: CurveOps, w: int):
 def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
                      k_block: int = K_BLOCK):
     """[N+1, 2, W] infinity-padded affine points + [nw, N] signed digits
-    -> [nw, 3, W] batch-major window sums S_w = sum_d d B_d."""
+    -> [nw, 3, W] batch-major window sums S_w = sum_d d B_d.  K1 adds
+    ``FUSE_STEPS`` points per launch, read at call time so that tests can
+    set it (the reference caps it at 8 for BLS12-381; the port keeps 16)."""
     dev = points_pad.device
     W = ops.W
     i32 = dict(dtype=torch.int32, device=dev)
@@ -310,7 +312,7 @@ def host_msm(curve: CurveParams, points: list, scalars: list):
     """Pippenger over host ints (copied from the reference ops/msm.py:665,
     whose module imports jax): points = [(x, y) | None], scalars = ints.
     Returns an affine int tuple or None."""
-    from .._ref.host import fp as hfp
+    from ..host import fp as hfp
 
     F = hfp.GF(curve.fp.modulus)
     n = len(points)
@@ -352,7 +354,7 @@ class MsmCtx:
     def _host_fold(self, window_sums, c: int = WINDOW_BITS) -> tuple | None:
         """[nw, 3, W] Montgomery projective window sums -> host affine int
         tuple (or None), Horner over the windows on host ints."""
-        from .._ref.host import fp as hfp
+        from ..host import fp as hfp
 
         p = self.curve.fp.modulus
         nw = window_sums.shape[0]
@@ -429,5 +431,5 @@ def _msm_ctx(curve: CurveParams, device: str) -> MsmCtx:
     return MsmCtx(curve, device)
 
 
-def msm_ctx(curve: CurveParams, device="cpu") -> MsmCtx:
+def msm_ctx(curve: CurveParams, device="cuda") -> MsmCtx:
     return _msm_ctx(curve, str(torch.device(device)))

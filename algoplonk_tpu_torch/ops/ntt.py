@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from .._ref.fields.params import CURVES, CurveParams, domain_generator, gnark_compat_enabled
+from ..fields.params import CURVES, CurveParams, domain_generator, gnark_compat_enabled
 from .field import field_ops
 
 
@@ -105,5 +105,5 @@ def _ntt_plan(curve_name: str, log_n: int, device: str, compat: bool) -> NttPlan
     return NttPlan(CURVES[curve_name], log_n, device)
 
 
-def ntt_plan(curve_name: str, log_n: int, device="cpu") -> NttPlan:
+def ntt_plan(curve_name: str, log_n: int, device="cuda") -> NttPlan:
     return _ntt_plan(curve_name, log_n, str(torch.device(device)), gnark_compat_enabled())

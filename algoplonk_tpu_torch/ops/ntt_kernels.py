@@ -36,20 +36,19 @@ Its ``LmOps`` (jitted limbs-major elementwise ops) have no counterpart:
 A CPU tensor takes ``plain_ntt_pass``; a CUDA tensor launches K9 or raises,
 with no fallback.  ``LAUNCHES`` counts kernel launches only.  Plans are
 cached per (curve, size, device, gnark-compat mode), and a mode toggle clears
-the cache (``_ref/__init__.py``).
+the cache (``fields/params.py:_clear_derived_caches``).
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from .._ref.fields.params import CURVES, domain_generator, gnark_compat_enabled
-from ..fields.words import ints_to_words
+from ..fields.params import CURVES, domain_generator, gnark_compat_enabled
 from ._build import check_tensor, raise_on, stream_of
+from .curve_kernels import field_consts
 from .field import FieldOps, field_ops
 from .ntt import power_table
 
@@ -111,24 +110,6 @@ def plain_ntt_pass(f: FieldOps, x, tw, C: int, inverse: bool, entry=None, exit_=
 
 # ------------------------------------------------------------------ kernel
 
-_CONSTS: dict = {}
-
-
-def _consts(f: FieldOps):
-    """The packed FieldConsts words (p, n0, one) in host memory."""
-    buf = _CONSTS.get(f.modulus)
-    if buf is None:
-        wf = f.wf
-        words = np.concatenate([
-            ints_to_words([wf.modulus], wf.W)[0],
-            np.asarray([wf.n0], np.uint32).view(np.int32),
-            ints_to_words([wf.r], wf.W)[0],
-        ])
-        buf = (ctypes.c_int32 * words.size)(*words.tolist())
-        _CONSTS[f.modulus] = buf
-    return buf
-
-
 def _lib(f: FieldOps):
     from ._build import library
 
@@ -166,7 +147,7 @@ def ntt_pass(f: FieldOps, x, tw, C: int, inverse: bool, entry=None, exit_=None):
         x.data_ptr(), tw.data_ptr(),
         entry.data_ptr() if entry is not None else None,
         exit_.data_ptr() if exit_ is not None else None,
-        out.data_ptr(), N, C, int(inverse), _consts(f), stream_of(x),
+        out.data_ptr(), N, C, int(inverse), field_consts(f.wf), stream_of(x),
     )
     raise_on(rc, "ntt_pass")
     LAUNCHES["ntt_pass"] += 1
@@ -315,5 +296,5 @@ def _four_step_plan(curve_name: str, log_n: int, device: str, compat: bool) -> F
     return FourStepPlan(curve_name, log_n, device)
 
 
-def four_step_plan(curve_name: str, log_n: int, device="cpu") -> FourStepPlan:
+def four_step_plan(curve_name: str, log_n: int, device="cuda") -> FourStepPlan:
     return _four_step_plan(curve_name, log_n, str(torch.device(device)), gnark_compat_enabled())

@@ -13,7 +13,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .._ref.fields.params import CURVES, CurveParams
+from ..fields.params import CURVES, CurveParams
 from ..fields.words import jax_limbs_to_mont_words, word_field
 
 
@@ -88,7 +88,7 @@ def verifying_key_from_jax(jvk) -> VerifyingKey:
     return VerifyingKey(**fields)
 
 
-def proving_key_from_jax(jpk, device="cpu") -> ProvingKey:
+def proving_key_from_jax(jpk, device="cuda") -> ProvingKey:
     """Carry a reference ProvingKey (12-bit Montgomery limbs, R = 2^264)
     across to the port (32-bit Montgomery words, R = 2^256) on ``device``."""
     curve = CURVES[jpk.curve.name]

@@ -19,8 +19,8 @@ uncompressed G1 points (gnark RawBytes incl. the 0x40 infinity flag)
 
 from __future__ import annotations
 
-from .._ref.fields.params import CurveParams
-from .._ref.host.serialize import PointCodec, fr_bytes
+from ..fields.params import CurveParams
+from ..host.serialize import PointCodec, fr_bytes
 
 
 def marshal_proof(curve: CurveParams, proof) -> bytes:

@@ -27,10 +27,10 @@ from dataclasses import dataclass, field
 
 import torch
 
-from .._ref.fields.params import domain_generator, gnark_compat_enabled
-from .._ref.frontend.api import CompiledConstraintSystem
-from .._ref.frontend.witness import Witness, wire_values
-from .._ref.plonk.transcript import Transcript, hash_fr_bsb22
+from ..fields.params import domain_generator, gnark_compat_enabled
+from ..frontend.api import CompiledConstraintSystem
+from ..frontend.witness import Witness, wire_values
+from ..plonk.transcript import Transcript, hash_fr_bsb22
 from ..ops import poly as polyops
 from ..ops.field import field_ops
 from ..ops.msm import msm_ctx

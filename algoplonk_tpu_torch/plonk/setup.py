@@ -11,9 +11,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from .._ref.fields.params import domain_generator
-from .._ref.frontend.api import CompiledConstraintSystem
-from .._ref.setups.registry import SRS, next_power_of_two
+from ..fields.params import domain_generator
+from ..frontend.api import CompiledConstraintSystem
+from ..setups.registry import SRS, next_power_of_two
 from ..ops.field import field_ops
 from ..ops.msm import msm_ctx
 from ..ops.ntt import ntt_plan

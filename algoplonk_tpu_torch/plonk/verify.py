@@ -14,9 +14,9 @@ a proof accepted here is accepted on-chain.
 
 from __future__ import annotations
 
-from .._ref.host import fp as hfp
-from .._ref.host.pairing import pairing_engine
-from .._ref.plonk.transcript import Transcript, hash_fr_bsb22
+from ..host import fp as hfp
+from ..host.pairing import pairing_engine
+from ..plonk.transcript import Transcript, hash_fr_bsb22
 
 
 class VerificationError(Exception):

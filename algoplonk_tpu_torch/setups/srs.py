@@ -1,11 +1,14 @@
 """Structured reference strings for the port.
 
 The registry (``SetupName``, ``get``, ``srs_size_for``, ``SRS``, the trusted
-loaders) is the reference's ``setups/registry.py`` itself, imported through
-``_ref``.  Its test-only generator reaches jax, so the port has its own:
-``test_only_srs`` returns the same points as the reference's
-(registry.py:162-277), [tau^i] G1 with the same ``_test_tau``, computed on
-the device with the port's batched double-and-add ``scalar_mul``.
+loader) is the port's copy of the reference's ``setups/registry.py``
+(``registry.py`` here).  The reference's test-only generator reaches jax, so
+the port has its own: ``test_only_srs`` returns the same points as the
+reference's (registry.py:162-277), [tau^i] G1 with the same ``_test_tau``,
+computed on the device with the port's batched double-and-add
+``scalar_mul``.  A trusted ceremony (``run_setup``) is decompressed on the
+host by ``load_trusted``, which caches the points under ``.cache/``, and
+encoded on the device.
 
 The result is an ``SRS`` whose ``g1_limbs`` field holds the port's
 ``[N, 2, W]`` Montgomery word tensor on the device.  It is cached under
@@ -21,9 +24,9 @@ import tempfile
 import numpy as np
 import torch
 
-from .._ref.fields.params import CurveParams
-from .._ref.host import fp as hfp
-from .._ref.setups.registry import (  # noqa: F401 (re-exported)
+from ..fields.params import CurveParams
+from ..host import fp as hfp
+from .registry import (  # noqa: F401 (re-exported)
     CACHE_DIR,
     SRS,
     SetupName,
@@ -77,7 +80,7 @@ def _save_cached(path: str, curve: CurveParams, table: torch.Tensor) -> None:
     os.replace(tmp, path)
 
 
-def test_only_srs(curve: CurveParams, g1_count: int, device="cpu",
+def test_only_srs(curve: CurveParams, g1_count: int, device="cuda",
                   use_cache: bool = True) -> SRS:
     """Deterministic test SRS (NOT for production): [tau^i] G1 for
     i < g1_count on ``device``, and ([1] G2, [tau] G2)."""
@@ -100,7 +103,7 @@ def test_only_srs(curve: CurveParams, g1_count: int, device="cpu",
 
 
 def run_setup(curve: CurveParams, setup_name: SetupName, nb_constraints: int,
-              nb_public: int, device="cpu") -> SRS:
+              nb_public: int, device="cuda") -> SRS:
     """Size and load the SRS for a circuit (reference registry.run_setup)."""
     info = get(setup_name)
     if info is None:

@@ -7,19 +7,22 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
 1. build the kernels from algoplonk_tpu_torch/csrc with nvcc (sm_90a, one
-   process per source): the four MSM kernels K1-K4 on random valid points at
-   the lane widths a 2^16 commit gives them (c = 11, K = 16), and the NTT
-   stage kernel K9 on random residues at the four pass shapes of the 2^17
-   path's four-step transforms of 2^19 (C = 512 and 1024, forward and
-   inverse, with and without the fused entry and exit multiplies).  Each
-   must equal its plain PyTorch version word for word (tolerance: exact);
+   process per source and width) and hold each against its plain PyTorch
+   version, word for word (tolerance: exact): K1-K4 and K5-K7 at W = 8 on random
+   valid points at the lane widths a BN254 2^16 commit gives K1-K4 (c = 11,
+   K = 16), and at W = 12 at the widths of a BLS12-381 2^14 commit, with
+   identity, doubling and cancelling lanes; K8 on 2^16 random residues of
+   each of the four fields; and the NTT stage kernel K9 on random residues
+   at the four pass shapes of the 2^17 path's four-step transforms of 2^19
+   (C = 512 and 1024, forward and inverse, with and without the fused entry
+   and exit multiplies);
 2. the 2^16 path, with the launch counts zeroed just before it: compile the
    2^16-constraint SquareChain circuit on BN254 with the test SRS on the
    GPU, prove and self-verify it (CompiledCircuit.verify, batch-major
    quotient), marshal; the proof must be 24 words, a flipped public input
    must be rejected, and K1-K4 must have launched;
 3. one commit-sized MSM (65,539 points of that SRS): the kernel path must
-   equal the plain path and the host Pippenger;
+   equal the plain path, and on a 4,096-point prefix the host Pippenger;
 4. a small circuit proved on the GPU (device MSM forced) must give the same
    proof bytes as on the CPU through both quotient paths, and a BSB22
    circuit must prove and verify;
@@ -30,12 +33,32 @@ result line):
    quotient and self-verified, with the same checks as phase 2 and every
    kernel, K9 included, launched; two more proves of the same witness with
    Prover(rng=False), forced through each quotient path, must give equal
-   bytes.
+   bytes;
+6. the BLS12-381 path, with the counts zeroed just before it: the 2^14
+   SquareChain (y in BLS12-381's Fr) compiled on the Ethereum KZG ceremony,
+   proved and self-verified; the proof must be 33 words, a flipped public
+   input rejected, and K1-K4 launched at W = 12.  Then a small BLS12-381
+   circuit with the device MSM forced gives the CPU's proof bytes through
+   both quotient paths (the four-step one runs K9 on BLS12-381's Fr), and
+   an MSM over all 32,768 ceremony points agrees between the kernel path
+   at fuse depths 16 and 8 and the plain path, and on a 4,096-point prefix
+   (c = 11) with the host Pippenger;
+7. the kernel-test path of K5-K8 (the counterpart of the reference's
+   tests/test_pallas_kernels.py), with the counts zeroed just before it:
+   on each curve, K5, K6 and K7 on identity, doubling and cancelling lanes
+   against host EC arithmetic, and K8 on both of its fields against host
+   integers.
 
 Output: timings on stdout; before the last line the card's name and power
-limit, then a JSON line of per-kernel numbers (launches from the 2^17 path;
-K9's ms and plain_ms are the sums over its four pass shapes, itemised under
-"passes"); the last line is {"ok": true, "device": {...}}.
+limit, then a JSON line of per-kernel numbers: launches from the path that
+runs the kernel (K1-K4 at W = 8 and K9 from the 2^17 path, K1-K4 at W = 12
+from the BLS12-381 path, K5-K8 from the kernel-test path), the time of
+kernel and plain version at phase 1's shapes (K9's ms and plain_ms are the
+sums over its four pass shapes, itemised under "passes"), and the bound at
+those shapes: the larger of the bytes over HBM bandwidth and the 32-bit
+integer multiplies over the card's multiply rate.  No single PyTorch call
+computes any of these functions, so library_ms is null.  The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -47,17 +70,36 @@ import subprocess
 import sys
 import time
 
-LOG_N = 16        # the 2^16 path (batch-major quotient)
-LM_LOG_N = 17     # the 2^17 path (four-step quotient, K9)
-SRC = "algoplonk_tpu_torch/csrc/msm_kernels.cu"
+LOG_N = 16        # the BN254 2^16 path (batch-major quotient)
+LM_LOG_N = 17     # the BN254 2^17 path (four-step quotient, K9)
+BLS_LOG_N = 14    # the BLS12-381 path: the Ethereum KZG ceremony's cap
+BLS_MSM_POINTS = 1 << 15   # every G1 point of that ceremony
+HOST_PREFIX = 4096         # points checked against the host Pippenger
+MSM_SRC = "algoplonk_tpu_torch/csrc/msm_kernels.cu"
+CURVE_SRC = "algoplonk_tpu_torch/csrc/curve_kernels.cu"
 NTT_SRC = "algoplonk_tpu_torch/csrc/ntt_kernels.cu"
+SOURCE = {
+    "mixed_add_signed_multi": MSM_SRC, "jac_add_multi_scan": MSM_SRC,
+    "jac_add": MSM_SRC, "canon": MSM_SRC, "mixed_add": CURVE_SRC,
+    "mixed_add_signed": CURVE_SRC, "jac_add_multi": CURVE_SRC,
+    "field_mul": CURVE_SRC, "ntt_pass": NTT_SRC,
+}
 REPLACES = {
     "mixed_add_signed_multi": "algoplonk_tpu/ops/curve_pallas.py:250",
     "jac_add_multi_scan": "algoplonk_tpu/ops/curve_pallas.py:357",
     "jac_add": "algoplonk_tpu/ops/curve_pallas.py:292",
     "canon": "algoplonk_tpu/ops/curve_pallas.py:404",
+    "mixed_add": "algoplonk_tpu/ops/curve_pallas.py:156",
+    "mixed_add_signed": "algoplonk_tpu/ops/curve_pallas.py:201",
+    "jac_add_multi": "algoplonk_tpu/ops/curve_pallas.py:324",
+    "field_mul": "algoplonk_tpu/ops/curve_pallas.py:447",
     "ntt_pass": "algoplonk_tpu/ops/ntt_pallas.py:129",
 }
+# Montgomery multiplies per lane of one call of each formula (curve.cuh)
+MIXED_ADD_MULS = 13
+JAC_ADD_MULS = 14
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+IMUL_PER_CLK_PER_SM = 64    # 32-bit integer multiply-adds, compute capability 9.0
 
 
 def log(*a):
@@ -77,6 +119,34 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class Bound:
+    """The least time the card could take for a kernel's work: the larger
+    of the bytes it must move (each input read once, each output written
+    once) over HBM bandwidth and its 32-bit integer multiplies over the
+    card's rate for them (SMs x 64 per clock x the maximum SM clock).  A
+    W-word CIOS Montgomery multiply is 2 W^2 + W 32x32->64-bit products,
+    each two 32-bit multiplies (low and high word)."""
+
+    def __init__(self, torch, max_sm_mhz: float):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.imul_per_s = sms * IMUL_PER_CLK_PER_SM * max_sm_mhz * 1e6
+        log(f"bound rates: {HBM_BYTES_PER_S:.3e} B/s, {self.imul_per_s:.4e} 32-bit "
+            f"multiplies/s ({sms} SMs at {max_sm_mhz:.0f} MHz)")
+
+    @staticmethod
+    def imuls(W: int, montmuls: float) -> float:
+        return 2 * (2 * W * W + W) * montmuls
+
+    def __call__(self, W: int, montmuls: float, nbytes: float):
+        t_ops = self.imuls(W, montmuls) / self.imul_per_s
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def square_chain(apt, log_n: int):
@@ -124,30 +194,42 @@ def pythagorean(apt):
     return Pythagorean
 
 
-def kernel_phase(torch, rng):
-    """K1-K4 against their plain versions at main-path widths."""
-    from algoplonk_tpu_torch import BN254
-    from algoplonk_tpu_torch._ref.host import fp as hfp
+def random_residues(torch, f, n: int, gen):
+    """n canonical residues [n, W] on f's device: random words with the top
+    word cut so that every value is below 2^(bits(p) - 1) < p."""
+    x = torch.randint(-2**31, 2**31, (n, f.W), generator=gen, dtype=torch.int64)
+    x[:, -1] &= (1 << (f.fp.nbits - 1 - 32 * (f.W - 1))) - 1
+    return x.to(torch.int32).to(f.device).contiguous()
+
+
+def commit_widths(n: int):
+    """K1-K4's lane widths in one MSM of n points (c = 11, K = 16, S = 16)."""
+    from algoplonk_tpu_torch.ops import msm as M
+
+    c = M.pick_window_bits(n)
+    nw = M.num_windows(c)
+    nblk = -(-n // (M.K_BLOCK * M.SUPER)) * M.SUPER
+    return (M._pad_lanes(nw * nblk), M._pad_lanes(nw * ((1 << (c - 1)) + 1)),
+            M._pad_lanes(nw * (nblk // M.SUPER)))
+
+
+def kernel_phase(torch, rng, curve, n_commit, bound, suffix):
+    """K1-K7 on ``curve`` against their plain versions at the lane widths of
+    one commit of n_commit points; names carry ``suffix``."""
+    from algoplonk_tpu_torch.host import fp as hfp
     from algoplonk_tpu_torch.ops import curve_kernels as ck
     from algoplonk_tpu_torch.ops import msm as M
     from algoplonk_tpu_torch.ops.curve import curve_ops
 
     dev = torch.device("cuda")
-    ops = curve_ops(BN254, dev)
+    ops = curve_ops(curve, dev)
     W = ops.W
-    g = torch.Generator(device="cpu").manual_seed(1)
-    # widths of one 2^16 commit (n + 3 points, c = 11, K = 16, S = 16)
-    n = (1 << LOG_N) + 3
-    c = M.WINDOW_BITS
-    nw = M.num_windows(c)
-    nblk = -(-n // (M.K_BLOCK * M.SUPER)) * M.SUPER
-    w1p = M._pad_lanes(nw * nblk)
-    w2p = M._pad_lanes(nw * ((1 << (c - 1)) + 1))
-    wsbp = M._pad_lanes(nw * (nblk // M.SUPER))
-    log(f"kernel widths: w1p={w1p} w2p={w2p} wsbp={wsbp}")
+    g = torch.Generator(device="cpu").manual_seed(1 + W)
+    w1p, w2p, wsbp = commit_widths(n_commit)
+    log(f"[{curve.name}] kernel widths at W = {W}: w1p={w1p} w2p={w2p} wsbp={wsbp}")
 
-    F = hfp.GF(BN254.fp.modulus)
-    base = [hfp.ec_mul(F, BN254.g1, rng.randrange(1, BN254.fr.modulus)) for _ in range(256)]
+    F = hfp.GF(curve.fp.modulus)
+    base = [hfp.ec_mul(F, curve.g1, rng.randrange(1, curve.fr.modulus)) for _ in range(256)]
     table = ops.encode_affine(base)                                  # [256, 2, W]
     pts_flat = torch.cat([table, torch.zeros(1, 2, W, dtype=torch.int32, device=dev)])
     pts_flat = pts_flat.reshape(-1, 2 * W).contiguous()
@@ -161,7 +243,7 @@ def kernel_phase(torch, rng):
 
     results = []
 
-    def check(name, kern, plain, reps):
+    def check(name, kern, plain, reps, montmuls, moved):
         out_k = kern()
         torch.cuda.synchronize()
         out_p = plain()
@@ -169,56 +251,99 @@ def kernel_phase(torch, rng):
         diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
         ms = cuda_ms(kern, reps)
         plain_ms = cuda_ms(plain, 1)
-        log(f"{name}: exact={diff == 0} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+        bound_ms, bound_by = bound(W, montmuls, moved + nbytes(out_k))
+        log(f"{name}{suffix}: exact={diff == 0} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
         if diff != 0:
-            raise AssertionError(f"{name}: kernel disagrees with its plain version")
-        results.append({"name": name, "route": "cuda", "source": SRC,
-                        "replaces": REPLACES[name], "max_abs_err": diff,
-                        "ms": ms, "plain_ms": plain_ms})
+            raise AssertionError(f"{name}{suffix}: kernel disagrees with its plain version")
+        results.append({"name": name + suffix, "route": "cuda", "source": SOURCE[name],
+                        "replaces": REPLACES[name], "kernel": name, "width": W,
+                        "max_abs_err": diff, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
 
-    # K1 at phase-1 width: 16 signed gather-adds over random rows and the
-    # identity row; lanes 0-63 add their own point (doubling), lanes 64-127
-    # its negation (result: identity)
+    # K1 at phase-1 width: FUSE_STEPS signed gather-adds over random rows and
+    # the identity row; lanes 0-63 add their own point (doubling), lanes
+    # 64-127 its negation (result: identity)
     acc, acc_idx, acc_plain = rand_proj(w1p)
     acc[:, :, :128] = acc_plain[:, :, :128]
-    rows = torch.randint(0, 257, (M.FUSE_STEPS, w1p), generator=g).to(dev)
-    sign = torch.randint(0, 2, (M.FUSE_STEPS, w1p), generator=g).to(dev)
+    steps = M.FUSE_STEPS
+    rows = torch.randint(0, 257, (steps, w1p), generator=g).to(dev)
+    sign = torch.randint(0, 2, (steps, w1p), generator=g).to(dev)
     rows[0, :128] = acc_idx[:128]
     sign[0, :64] = 0
     sign[0, 64:128] = 1
     packed = (rows | (sign << ck.SIGN_SHIFT)).to(torch.int32).contiguous()
     check("mixed_add_signed_multi",
           lambda: ck.mixed_add_signed_multi(ops, acc, pts_flat, packed),
-          lambda: ck.plain_mixed_add_signed_multi(ops, acc, pts_flat, packed), 20)
-    # K2 at phase-2a width
+          lambda: ck.plain_mixed_add_signed_multi(ops, acc, pts_flat, packed), 20,
+          steps * w1p * MIXED_ADD_MULS, nbytes(acc, pts_flat, packed))
+    # K5 and K6 at the same width: one step, the gathered point given
+    aff = pts_flat[rows[0]].reshape(w1p, 2, W).permute(1, 2, 0).contiguous()
+    neg = sign[:1].to(torch.int32).contiguous()
+    check("mixed_add", lambda: ck.mixed_add(ops, acc, aff),
+          lambda: ck.plain_mixed_add(ops, acc, aff), 20,
+          w1p * MIXED_ADD_MULS, nbytes(acc, aff))
+    check("mixed_add_signed", lambda: ck.mixed_add_signed(ops, acc, aff, neg),
+          lambda: ck.plain_mixed_add_signed(ops, acc, aff, neg), 20,
+          w1p * MIXED_ADD_MULS, nbytes(acc, aff, neg))
+    # K2 and K7 at phase-2a width
     acc2 = rand_proj(wsbp)[0]
     qs = torch.cat([rand_proj(wsbp)[0] for _ in range(M.SUPER)]).contiguous()
     check("jac_add_multi_scan",
           lambda: ck.jac_add_multi_scan(ops, acc2, qs),
-          lambda: ck.plain_jac_add_multi_scan(ops, acc2, qs), 20)
+          lambda: ck.plain_jac_add_multi_scan(ops, acc2, qs), 20,
+          M.SUPER * wsbp * JAC_ADD_MULS, nbytes(acc2, qs))
+    check("jac_add_multi",
+          lambda: ck.jac_add_multi(ops, acc2, qs),
+          lambda: ck.plain_jac_add_multi(ops, acc2, qs), 20,
+          M.SUPER * wsbp * JAC_ADD_MULS, nbytes(acc2, qs))
     # K3 at phase-3/4 width, with p + p and p + (-p) lanes
     p3 = rand_proj(w2p)[0]
     q3 = rand_proj(w2p)[0]
     q3[:, :, :128] = p3[:, :, :128]
     q3[1, :, 64:128] = ops.f.neg(p3[1, :, 64:128].T).T
     check("jac_add", lambda: ck.jac_add(ops, p3, q3),
-          lambda: ck.plain_jac_add(ops, p3, q3), 50)
-    # K4 on arbitrary 256-bit words
+          lambda: ck.plain_jac_add(ops, p3, q3), 50, w2p * JAC_ADD_MULS, nbytes(p3, q3))
+    # K4 on arbitrary W-word values
     x4 = torch.randint(-2**31, 2**31, (3, W, w2p), generator=g, dtype=torch.int64)
     x4 = x4.to(torch.int32).to(dev).contiguous()
-    check("canon", lambda: ck.canon(ops, x4), lambda: ck.plain_canon(ops, x4), 50)
+    check("canon", lambda: ck.canon(ops, x4), lambda: ck.plain_canon(ops, x4), 50,
+          3 * w2p, nbytes(x4))
     return results
 
 
-def random_residues(torch, f, n: int, gen):
-    """n canonical residues [n, W] on f's device: random words with the top
-    word cut below 2^28, so every value is below 2^252 < p."""
-    x = torch.randint(-2**31, 2**31, (n, f.W), generator=gen, dtype=torch.int64)
-    x[:, -1] &= (1 << 28) - 1
-    return x.to(torch.int32).to(f.device).contiguous()
+def field_mul_phase(torch, apt, bound):
+    """K8 on 2^16 random residues of each field it serves."""
+    from algoplonk_tpu_torch.ops import curve_kernels as ck
+    from algoplonk_tpu_torch.ops.field import field_ops
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    results = []
+    for curve in (apt.BN254, apt.BLS12_381):
+        for fp in (curve.fr, curve.fp):
+            f = field_ops(fp, "cuda")
+            a, b = random_residues(torch, f, 1 << 16, g), random_residues(torch, f, 1 << 16, g)
+            a[:3] = f.encode([0, 1, fp.modulus - 1])
+            out_k = ck.field_mul(f, a, b)
+            torch.cuda.synchronize()
+            diff = (out_k.to(torch.int64) - ck.plain_field_mul(f, a, b).to(torch.int64)).abs().max().item()
+            ms = cuda_ms(lambda: ck.field_mul(f, a, b), 50)
+            plain_ms = cuda_ms(lambda: ck.plain_field_mul(f, a, b), 3)
+            bound_ms, bound_by = bound(f.W, a.shape[0], nbytes(a, b, out_k))
+            name = f"field_mul[{fp.name}]"
+            log(f"{name}: exact={diff == 0} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+            if diff != 0:
+                raise AssertionError(f"{name}: kernel disagrees with its plain version")
+            results.append({"name": name, "route": "cuda", "source": CURVE_SRC,
+                            "replaces": REPLACES["field_mul"], "kernel": "field_mul",
+                            "width": f.W, "field": fp.name, "max_abs_err": diff,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": None})
+    return results
 
 
-def ntt_kernel_phase(torch):
+def ntt_kernel_phase(torch, bound):
     """K9 against its plain version at the pass shapes of the 2^17 path:
     the four-step transform of 2^19 splits into n1 = 512 and n2 = 1024."""
     from algoplonk_tpu_torch.ops import ntt_kernels as nk
@@ -226,7 +351,8 @@ def ntt_kernel_phase(torch):
     fsp = nk.four_step_plan("bn254", LM_LOG_N + 2, "cuda")
     f, N = fsp.f, fsp.n
     g = torch.Generator(device="cpu").manual_seed(9)
-    passes, worst = [], 0
+    passes, worst, total_bound = [], 0, 0.0
+    ops_total = bytes_total = 0
     for C, inverse, fused in ((fsp.n1, False, True), (fsp.n2, False, False),
                               (fsp.n2, True, False), (fsp.n1, True, True)):
         x = random_residues(torch, f, N, g)
@@ -241,16 +367,81 @@ def ntt_kernel_phase(torch):
         out_p = plain()
         diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
         ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 1)
+        montmuls = N // 2 * (C.bit_length() - 1) + (2 * N if fused else 0)
+        moved = nbytes(x, tw, out_k, *kw.values())
+        bound_ms, bound_by = bound(f.W, montmuls, moved)
+        ops_total += montmuls
+        bytes_total += moved
+        total_bound += bound_ms
         shape = f"{'dit' if inverse else 'dif'} N={N} C={C}" + (" entry+exit" if fused else "")
-        log(f"ntt_pass {shape}: exact={diff == 0} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+        log(f"ntt_pass {shape}: exact={diff == 0} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
         if diff != 0:
             raise AssertionError(f"ntt_pass {shape}: kernel disagrees with its plain version")
         worst = max(worst, diff)
-        passes.append({"shape": shape, "ms": ms, "plain_ms": plain_ms})
+        passes.append({"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms})
+    t_ops = Bound.imuls(f.W, ops_total) / bound.imul_per_s
     return {"name": "ntt_pass", "route": "cuda", "source": NTT_SRC,
-            "replaces": REPLACES["ntt_pass"], "max_abs_err": worst,
+            "replaces": REPLACES["ntt_pass"], "kernel": "ntt_pass", "width": f.W,
+            "max_abs_err": worst,
             "ms": sum(p["ms"] for p in passes),
-            "plain_ms": sum(p["plain_ms"] for p in passes), "passes": passes}
+            "plain_ms": sum(p["plain_ms"] for p in passes),
+            "bound_ms": total_bound,
+            "bound_by": "operations" if t_ops >= bytes_total / HBM_BYTES_PER_S else "bytes",
+            "library_ms": None, "passes": passes}
+
+
+def kernel_test_path(torch, curve, lanes: int = 1024):
+    """K5-K8 on one curve as the reference's kernel tests drive them, each
+    result against host arithmetic: K5 and K6 on identity, doubling and
+    cancelling lanes, K7 over four steps, K8 on both fields."""
+    from algoplonk_tpu_torch.host import fp as hfp
+    from algoplonk_tpu_torch.ops import curve_kernels as ck
+    from algoplonk_tpu_torch.ops.curve import curve_ops
+    from algoplonk_tpu_torch.ops.field import field_ops
+
+    rng = random.Random(0x5EED + curve.fp.nbits)
+    F = hfp.GF(curve.fp.modulus)
+    ops = curve_ops(curve, "cuda")
+    base = [hfp.ec_mul(F, curve.g1, rng.randrange(1, 1 << 64)) for _ in range(32)] + [None]
+    P = [rng.choice(base) for _ in range(lanes)]
+    Q = [rng.choice(base) for _ in range(lanes)]
+    for i in range(0, lanes, 16):
+        Q[i] = P[i]                                        # doubling
+        Q[i + 1] = hfp.ec_neg(F, P[i + 1]) if P[i + 1] else None   # cancellation
+        P[i + 2], Q[i + 3] = None, None                    # identities
+    neg = [rng.randrange(2) for _ in range(lanes)]
+
+    def lm(bm):
+        return bm.permute(1, 2, 0).contiguous()
+
+    def proj(points):
+        return ops.jac_double(ops.affine_to_jac(ops.encode_affine(points)))
+
+    def affine(out_lm):
+        return ops.decode_affine(ops.to_affine(out_lm.permute(2, 0, 1)))
+
+    dP = [hfp.ec_double(F, a) for a in P]
+    acc = lm(proj(P))
+    got = affine(ck.mixed_add(ops, acc, lm(ops.encode_affine(Q))))
+    ok = got == [hfp.ec_add(F, a, b) for a, b in zip(dP, Q)]
+    signed = [hfp.ec_neg(F, q) if s and q else q for q, s in zip(Q, neg)]
+    neg_t = torch.tensor([neg], dtype=torch.int32, device="cuda")
+    got = affine(ck.mixed_add_signed(ops, acc, lm(ops.encode_affine(Q)), neg_t))
+    ok &= got == [hfp.ec_add(F, a, b) for a, b in zip(dP, signed)]
+    steps = [[rng.choice(base) for _ in range(lanes)] for _ in range(4)]
+    qs = torch.cat([lm(proj(s)) for s in steps])
+    want = dP
+    for s in steps:
+        want = [hfp.ec_add(F, a, hfp.ec_double(F, b)) for a, b in zip(want, s)]
+    ok &= affine(ck.jac_add_multi(ops, acc, qs)) == want
+    for fp in (curve.fr, curve.fp):
+        f = field_ops(fp, "cuda")
+        xs = [rng.randrange(fp.modulus) for _ in range(lanes - 2)] + [0, fp.modulus - 1]
+        ys = [rng.randrange(fp.modulus) for _ in range(lanes - 2)] + [fp.modulus - 1, 0]
+        ok &= f.decode(ck.field_mul(f, f.encode(xs), f.encode(ys))) == [
+            x * y % fp.modulus for x, y in zip(xs, ys)]
+    return ok
 
 
 def four_step_check(torch):
@@ -286,8 +477,8 @@ class plain_kernels:
         from algoplonk_tpu_torch.ops import curve_kernels as ck
         from algoplonk_tpu_torch.ops import msm as M
 
-        self.saved = {k: getattr(M, k) for k in ck.KERNELS}
-        for k in ck.KERNELS:
+        self.saved = {k: getattr(M, k) for k in ck.MSM_KERNELS}
+        for k in ck.MSM_KERNELS:
             setattr(M, k, getattr(ck, "plain_" + k))
         return self
 
@@ -339,22 +530,28 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
+    from algoplonk_tpu_torch.frontend import witness as witness_mod
     from algoplonk_tpu_torch.ops import _build
     from algoplonk_tpu_torch.ops import curve_kernels as ck
     from algoplonk_tpu_torch.ops import msm as M
     from algoplonk_tpu_torch.ops import ntt_kernels as nk
     from algoplonk_tpu_torch.plonk import verify as V
-    from algoplonk_tpu_torch.plonk.prove import Prover
     from algoplonk_tpu_torch.plonk.marshal import expected_proof_len, marshal_proof
-    from algoplonk_tpu_torch._ref.frontend import witness as witness_mod
+    from algoplonk_tpu_torch.plonk.prove import Prover
+    from algoplonk_tpu_torch.setups import registry
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    def smi(query):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+
+    card = smi("name,power.limit")
+    max_sm_mhz = float(smi("clocks.max.sm").split()[0])
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     rng = random.Random(0xA1607)
     dev = torch.device("cuda")
+    bound = Bound(torch, max_sm_mhz)
     # each path takes the quotient the default rule gives its size
     for var in ("AP_QUOTIENT_LM", "AP_NTT_LM_MIN_LOG"):
         os.environ.pop(var, None)
@@ -371,51 +568,63 @@ def main() -> int:
     _build.library()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     log(_build.build_log.strip())
-    kernels = kernel_phase(torch, rng)
-    kernels.append(ntt_kernel_phase(torch))
+    kernels = kernel_phase(torch, rng, apt.BN254, (1 << LOG_N) + 3, bound, "")
+    kernels += kernel_phase(torch, rng, apt.BLS12_381, (1 << BLS_LOG_N) + 3, bound, "[w12]")
+    kernels += field_mul_phase(torch, apt, bound)
+    kernels.append(ntt_kernel_phase(torch, bound))
+    for k in kernels:   # K5-K7 at both widths carry the width in the name
+        if k["kernel"] in ("mixed_add", "mixed_add_signed", "jac_add_multi") and k["width"] == 8:
+            k["name"] += "[w8]"
 
-    r = apt.BN254.fr.modulus
-    x = 0xA1607 % r
-
-    def drive(log_n, expect):
+    def drive(curve, setup, log_n, expect):
         """Compile, prove + self-verify and check the 2^log_n SquareChain
         with the launch counts zeroed just before it; every kernel named in
-        ``expect`` must have launched.  Returns (cc, circuit, y, launches)."""
+        ``expect`` must have launched.  Returns (cc, circuit, x, y, launches
+        by kernel and width)."""
+        r = curve.fr.modulus
+        x = 0xA1607 % r
         SquareChain, chain = square_chain(apt, log_n)
         y = pow(x, 1 << chain, r)
+        tag = f"[{curve.name} 2^{log_n}]"
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        cc = apt.compile(SquareChain, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device=dev)
+        cc = apt.compile(SquareChain, curve, setup, device=dev)
         t_compile = time.perf_counter() - t0
+        at_compile = dict(ck.LAUNCHES_BY_WIDTH)
         t0 = time.perf_counter()
         with msm_timer() as msm_t:
             vp = cc.verify(SquareChain(x=x, y=y))
         t_verify = time.perf_counter() - t0
         blob = vp.marshal_proof()
         launches = counts()
+        by_width = {k: v for k, v in ck.LAUNCHES_BY_WIDTH.items() if v}
+        in_prove = {k: v - at_compile[k] for k, v in by_width.items() if v > at_compile[k]}
         peak = torch.cuda.max_memory_allocated()
-        log(f"[2^{log_n}] compile (circuit + SRS + setup) at n = {cc.pk.n}: {t_compile:.2f} s")
-        log(f"[2^{log_n}] prove + self-verify: {t_verify:.2f} s; phases (s): "
+        log(f"{tag} compile (circuit + SRS + setup, {setup.name}) at n = {cc.pk.n}: "
+            f"{t_compile:.2f} s")
+        log(f"{tag} prove + self-verify: {t_verify:.2f} s; phases (s): "
             + json.dumps({k: round(v, 4) for k, v in vp.phase_seconds.items()}))
-        log(f"[2^{log_n}] prove MSMs: {msm_t.calls} calls, {msm_t.seconds:.2f} s")
-        log(f"[2^{log_n}] launches: {launches}")
-        log(f"[2^{log_n}] peak device memory: {peak / 2**30:.3f} GiB")
+        log(f"{tag} prove MSMs: {msm_t.calls} calls, {msm_t.seconds:.2f} s")
+        log(f"{tag} launches: {launches}; by width: {by_width}; by width in prove + "
+            f"self-verify alone: {in_prove}")
+        log(f"{tag} peak device memory: {peak / 2**30:.3f} GiB")
         if cc.pk.n != 1 << log_n:
             raise AssertionError(f"domain {cc.pk.n} != 2^{log_n}")
-        if len(blob) != expected_proof_len(apt.BN254, 0):
+        if len(blob) != expected_proof_len(curve, 0):
             raise AssertionError(f"proof blob is {len(blob)} bytes")
         if V.verify(cc.vk, vp.proof, [(y + 1) % r]):
             raise AssertionError("a flipped public input was accepted")
         missing = [k for k in expect if launches[k] == 0]
         if missing:
-            raise AssertionError(f"kernels not launched on the 2^{log_n} path: {missing}")
-        return cc, SquareChain, y, launches
+            raise AssertionError(f"kernels not launched on the {tag} path: {missing}")
+        return cc, SquareChain, x, y, dict(ck.LAUNCHES_BY_WIDTH), launches
 
     # ---- phase 2: the 2^16 path
-    cc = drive(LOG_N, ck.KERNELS)[0]
+    cc = drive(apt.BN254, apt.SetupName.TEST_ONLY_BN254, LOG_N, ck.MSM_KERNELS)[0]
 
-    # ---- phase 3: one commit-sized MSM, kernels vs plain vs host
+    # ---- phase 3: one commit-sized MSM, kernels vs plain; a prefix vs host
+    r = apt.BN254.fr.modulus
     pts = cc.pk.srs_g1
     n = pts.shape[0]
     scalars = [rng.randrange(r) for _ in range(n)]
@@ -429,37 +638,48 @@ def main() -> int:
     with plain_kernels():
         plain = ctx.msm_to_affine_int(pts, mont, kind="mont")
     t_plain = time.perf_counter() - t0
+    pre = ctx.msm_to_affine_int(pts[:HOST_PREFIX], mont[:HOST_PREFIX], kind="mont")
     t0 = time.perf_counter()
-    host = M.host_msm(apt.BN254, ctx.ops.decode_affine(pts), scalars)
+    host = M.host_msm(apt.BN254, ctx.ops.decode_affine(pts[:HOST_PREFIX]), scalars[:HOST_PREFIX])
     t_host = time.perf_counter() - t0
-    log(f"MSM n={n}: kernel path {t_kernel:.3f} s, plain path {t_plain:.3f} s, "
-        f"host {t_host:.1f} s; equal: {got == plain == host}")
-    if not got == plain == host:
+    log(f"MSM n={n}: kernel path {t_kernel:.3f} s, plain path {t_plain:.3f} s; equal: "
+        f"{got == plain}; {HOST_PREFIX}-point prefix: host {t_host:.1f} s, equal: {pre == host}")
+    if not (got == plain and pre == host):
         raise AssertionError("commit-sized MSM disagrees")
+
+    def gpu_equals_cpu(curve, setup, P, assignment, public):
+        """Prove ``P`` with every commit on the device MSM, on the GPU and
+        on the CPU, through both quotient paths: all four must agree."""
+        host_max = M.HOST_MSM_MAX
+        M.HOST_MSM_MAX = 0
+        k9 = {}
+        try:
+            blobs = {}
+            for d in (dev, torch.device("cpu")):
+                small = apt.compile(P, curve, setup, device=d)
+                for lm in ("0", "1"):
+                    os.environ["AP_QUOTIENT_LM"] = lm
+                    before = nk.LAUNCHES["ntt_pass"]
+                    prover = Prover(small.pk, small.ccs, rng=False)
+                    wit = witness_mod.solve(small.ccs, P(**assignment),
+                                            commitment_solver=prover.bsb_solver)
+                    proof = prover.prove(wit)
+                    k9[d.type, lm] = nk.LAUNCHES["ntt_pass"] - before
+                    if not V.verify(small.vk, proof, public):
+                        raise AssertionError(f"small proof on {d} failed verification")
+                    blobs[d.type, lm] = marshal_proof(curve, proof)
+        finally:
+            M.HOST_MSM_MAX = host_max
+            os.environ.pop("AP_QUOTIENT_LM", None)
+        same = len(set(blobs.values())) == 1
+        log(f"[{curve.name}] small circuit, device MSM: GPU proof == CPU proof, both "
+            f"quotient paths: {same}; K9 launches by (device, path): {k9}")
+        if not same or k9["cuda", "1"] == 0:
+            raise AssertionError(f"small-circuit proofs differ: {sorted(blobs)}")
 
     # ---- phase 4: small circuits
     P = pythagorean(apt)
-    host_max = M.HOST_MSM_MAX
-    M.HOST_MSM_MAX = 0  # every commit through the device pipeline
-    try:
-        blobs = {}
-        for d in (dev, torch.device("cpu")):
-            small = apt.compile(P, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device=d)
-            for lm in ("0", "1"):
-                os.environ["AP_QUOTIENT_LM"] = lm
-                prover = Prover(small.pk, small.ccs, rng=False)
-                wit = witness_mod.solve(small.ccs, P(a=3, b=4, c=5), commitment_solver=prover.bsb_solver)
-                proof = prover.prove(wit)
-                if not V.verify(small.vk, proof, [3, 4]):
-                    raise AssertionError(f"small proof on {d} failed verification")
-                blobs[d.type, lm] = marshal_proof(apt.BN254, proof)
-    finally:
-        M.HOST_MSM_MAX = host_max
-        os.environ.pop("AP_QUOTIENT_LM", None)
-    same = len(set(blobs.values())) == 1
-    log(f"small circuit, device MSM: GPU proof == CPU proof, both quotient paths: {same}")
-    if not same:
-        raise AssertionError(f"small-circuit proofs differ: {sorted(blobs)}")
+    gpu_equals_cpu(apt.BN254, apt.SetupName.TEST_ONLY_BN254, P, dict(a=3, b=4, c=5), [3, 4])
     OneCommit = one_commit(apt)
     t0 = time.perf_counter()
     bcc = apt.compile(OneCommit, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device=dev)
@@ -470,13 +690,15 @@ def main() -> int:
 
     # ---- phase 5: the 2^17 path (four-step quotient, K9)
     four_step_check(torch)
-    cc, SquareChain, y, launches = drive(LM_LOG_N, (*ck.KERNELS, *nk.KERNELS))
+    cc, SquareChain, x, y, _, launches = drive(
+        apt.BN254, apt.SetupName.TEST_ONLY_BN254, LM_LOG_N, (*ck.MSM_KERNELS, *nk.KERNELS))
     lifts = 13 + 2 * len(cc.ccs.commitments)
     if launches["ntt_pass"] != 2 * (lifts + 1):
         raise AssertionError(f"K9 launched {launches['ntt_pass']} times, "
                              f"expected {2 * (lifts + 1)}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if k["kernel"] in ck.MSM_KERNELS + nk.KERNELS and k["width"] == 8:
+            k["launches"] = launches[k["kernel"]]
     blobs, r3 = {}, {}
     for lm in ("1", "0"):
         os.environ["AP_QUOTIENT_LM"] = lm
@@ -494,9 +716,82 @@ def main() -> int:
         f"proof bytes equal: {blobs['1'] == blobs['0']}")
     if blobs["1"] != blobs["0"]:
         raise AssertionError("the two quotient paths give different proofs")
+    del cc, proof, prover, wit
 
-    print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # ---- phase 6: the BLS12-381 path on the Ethereum KZG ceremony
+    bls = apt.BLS12_381
+    ceremony = apt.SetupName.ETHEREUM_KZG_CEREMONY_BLS12_381
+    _, _, _, _, by_width, _ = drive(bls, ceremony, BLS_LOG_N, ck.MSM_KERNELS)
+    missing = [k for k in ck.MSM_KERNELS if by_width[k, 12] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched at W = 12 on the BLS12-381 path: {missing}")
+    for k in kernels:
+        if k["kernel"] in ck.MSM_KERNELS and k["width"] == 12:
+            k["launches"] = by_width[k["kernel"], 12]
+    gpu_equals_cpu(bls, ceremony, P, dict(a=3, b=4, c=5), [3, 4])
+
+    t0 = time.perf_counter()
+    srs = registry.load_trusted(registry.get(ceremony), BLS_MSM_POINTS)
+    t_load = time.perf_counter() - t0
+    r = bls.fr.modulus
+    ctx = M.msm_ctx(bls, dev)
+    pts = ctx.ops.encode_affine(srs.g1)
+    scalars = [rng.randrange(r) for _ in range(BLS_MSM_POINTS)]
+    mont = ctx.fr.encode(scalars)
+    results, secs = {}, {}
+    default_fuse = M.FUSE_STEPS
+    try:
+        for fuse in (16, 8):
+            M.FUSE_STEPS = fuse
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[f"kernel fuse {fuse}"] = ctx.msm_to_affine_int(pts, mont, kind="mont")
+            secs[f"kernel fuse {fuse}"] = time.perf_counter() - t0
+    finally:
+        M.FUSE_STEPS = default_fuse
+    t0 = time.perf_counter()
+    with plain_kernels():
+        results["plain"] = ctx.msm_to_affine_int(pts, mont, kind="mont")
+    secs["plain"] = time.perf_counter() - t0
+    pre = ctx.msm_to_affine_int(pts[:HOST_PREFIX], mont[:HOST_PREFIX], kind="mont", window_bits=11)
+    t0 = time.perf_counter()
+    host = M.host_msm(bls, srs.g1[:HOST_PREFIX], scalars[:HOST_PREFIX])
+    secs["host prefix"] = time.perf_counter() - t0
+    same = len(set(results.values())) == 1
+    log(f"[bls12_381] MSM over {BLS_MSM_POINTS} ceremony points (host load {t_load:.1f} s): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+        + f"; kernel (16, 8) == plain: {same}; {HOST_PREFIX}-point prefix at c = 11 == host: "
+        f"{pre == host}")
+    if not (same and pre == host):
+        raise AssertionError("the BLS12-381 ceremony MSM disagrees")
+
+    # ---- phase 7: the kernel-test path of K5-K8
+    off_path = {}
+    for curve in (apt.BN254, bls):
+        reset_counts()
+        t0 = time.perf_counter()
+        ok = kernel_test_path(torch, curve)
+        launched = {k: v for k, v in ck.LAUNCHES_BY_WIDTH.items() if v}
+        log(f"[{curve.name}] kernel-test path of K5-K8: {time.perf_counter() - t0:.2f} s, "
+            f"equal to host: {ok}; launches: {launched}")
+        if not ok:
+            raise AssertionError(f"K5-K8 disagree with host arithmetic on {curve.name}")
+        for key, v in launched.items():
+            off_path[curve.name, key] = v
+    for k in kernels:
+        if k["kernel"] in ck.OFF_PATH_KERNELS:
+            curve = k.get("field", "bn254_x").rsplit("_", 1)[0] if k["kernel"] == "field_mul" \
+                else ("bn254" if k["width"] == 8 else "bls12_381")
+            k["launches"] = off_path.get((curve, (k["kernel"], k["width"])), 0)
+    unlaunched = [k["name"] for k in kernels if not k.get("launches")]
+    if unlaunched:
+        raise AssertionError(f"kernels never launched on their path: {unlaunched}")
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "passes")
+    line = [{key: k[key] for key in keys if key in k} for k in kernels]
+    print(card, flush=True)
+    print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import algoplonk_tpu_torch as apt
-from algoplonk_tpu_torch._ref.frontend import witness as witness_mod
+from algoplonk_tpu_torch.frontend import witness as witness_mod
 from algoplonk_tpu_torch.plonk import verify as V
 from algoplonk_tpu_torch.plonk.marshal import expected_proof_len, marshal_proof
 from algoplonk_tpu_torch.plonk.prove import Prover, _scatter_rows
@@ -65,10 +65,13 @@ def test_compile_verify_export(port_pyth, tmp_path):
 
 
 def test_compile_rejects_mismatched_setup():
-    with pytest.raises(ValueError, match="unsupported curve"):
-        apt.compile(TPyth, apt.BLS12_381, apt.SetupName.TEST_ONLY_BLS12_381)
+    """Both curves compile; a setup of the other curve is refused."""
+    cc = apt.compile(TPyth, apt.BLS12_381, apt.SetupName.TEST_ONLY_BLS12_381, device="cpu")
+    assert cc.curve is apt.BLS12_381 and cc.pk.srs_g1.shape[-1] == 12
     with pytest.raises(ValueError, match="does not match"):
-        apt.compile(TPyth, apt.BN254, apt.SetupName.TEST_ONLY_BLS12_381)
+        apt.compile(TPyth, apt.BN254, apt.SetupName.TEST_ONLY_BLS12_381, device="cpu")
+    with pytest.raises(ValueError, match="does not match"):
+        apt.compile(TPyth, apt.BLS12_381, apt.SetupName.TEST_ONLY_BN254, device="cpu")
 
 
 def test_scatter_rows_must_be_unique():
@@ -84,7 +87,7 @@ def test_scatter_rows_must_be_unique():
 def test_bsb22_prove_verify():
     """A BSB22 commitment circuit, proved and verified by the port alone."""
     TOne = one_commit(apt)
-    cc = apt.compile(TOne, apt.BN254, apt.SetupName.TEST_ONLY_BN254)
+    cc = apt.compile(TOne, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device="cpu")
     assert len(cc.vk.qcp) == 1
     vp = cc.verify(TOne(x=49, y=7))
     assert len(vp.proof.bsb_commitments) == len(vp.proof.qcp_at_z) == 1

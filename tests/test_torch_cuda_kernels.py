@@ -1,7 +1,9 @@
-"""The four CUDA MSM kernels (csrc/msm_kernels.cu) and the NTT stage kernel
-(csrc/ntt_kernels.cu) on the GPU, word for word against their plain PyTorch
-versions, and the device MSM, the four-step transform and a small proof
-against host arithmetic and the CPU.
+"""The CUDA kernels on the GPU, word for word against their plain PyTorch
+versions: the four MSM kernels K1-K4 (csrc/msm_kernels.cu) at W = 8 (BN254)
+and W = 12 (BLS12-381), K5-K8 (csrc/curve_kernels.cu) on both curves and
+every field, and the NTT stage kernel K9 (csrc/ntt_kernels.cu); then the
+device MSM, the four-step transform and small proofs against host arithmetic
+and the CPU.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no jax,
 so it runs on a machine without it:
@@ -15,8 +17,8 @@ import pytest
 import torch
 
 import algoplonk_tpu_torch as apt
-from algoplonk_tpu_torch._ref.frontend import witness as witness_mod
-from algoplonk_tpu_torch._ref.host import fp as hfp
+from algoplonk_tpu_torch.frontend import witness as witness_mod
+from algoplonk_tpu_torch.host import fp as hfp
 from algoplonk_tpu_torch.ops import curve_kernels as ck
 from algoplonk_tpu_torch.ops import msm as M
 from algoplonk_tpu_torch.ops import ntt_kernels as nk
@@ -101,6 +103,84 @@ def test_k4_canon(setup):
     run_and_compare("canon", lambda: ck.canon(ops, x), lambda: ck.plain_canon(ops, x))
 
 
+@pytest.fixture
+def bls_setup(cuda_device):
+    ops = curve_ops(apt.BLS12_381, cuda_device)
+    pts = sample_points(random.Random(5), apt.BLS12_381, 63) + [None]
+    return ops, ops.encode_affine(pts), torch.Generator().manual_seed(6)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4"])
+def test_msm_kernels_at_w12(bls_setup, kernel):
+    """K1-K4 on BLS12-381's 12-word base field, with identity, doubling and
+    cancelling lanes, at both fuse depths for K1."""
+    ops, table, gen = bls_setup
+    assert ops.W == 12
+    p = random_projective(ops, gen, table, LANES)
+    if kernel == "k1":
+        flat = table.reshape(table.shape[0], -1).contiguous()
+        for steps in (8, 16):
+            rows = torch.randint(0, table.shape[0] + 3, (steps, LANES), generator=gen)
+            sign = torch.randint(0, 2, (steps, LANES), generator=gen)
+            packed = (rows | (sign << ck.SIGN_SHIFT)).to(torch.int32).to(table.device)
+            run_and_compare(
+                "mixed_add_signed_multi",
+                lambda: ck.mixed_add_signed_multi(ops, p, flat, packed),
+                lambda: ck.plain_mixed_add_signed_multi(ops, p, flat, packed),
+            )
+    elif kernel == "k2":
+        qs = torch.cat([random_projective(ops, gen, table, LANES) for _ in range(M.SUPER)])
+        run_and_compare("jac_add_multi_scan", lambda: ck.jac_add_multi_scan(ops, p, qs),
+                        lambda: ck.plain_jac_add_multi_scan(ops, p, qs))
+    elif kernel == "k3":
+        q = random_projective(ops, gen, table, LANES)
+        q[:, :, :64] = p[:, :, :64]
+        q[1, :, 64:128] = ops.f.neg(p[1, :, 64:128].T).T
+        run_and_compare("jac_add", lambda: ck.jac_add(ops, p, q), lambda: ck.plain_jac_add(ops, p, q))
+    else:
+        x = torch.randint(-(2**31), 2**31, (3, ops.W, LANES), generator=gen, dtype=torch.int64)
+        x = x.to(torch.int32).to(ops.device).contiguous()
+        run_and_compare("canon", lambda: ck.canon(ops, x), lambda: ck.plain_canon(ops, x))
+
+
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_k5_k6_k7(cuda_device, curve):
+    """K5, K6 and K7 at the curve's width, on identity, doubling and
+    cancelling lanes."""
+    c = apt.fields.params.CURVES[curve]
+    ops = curve_ops(c, cuda_device)
+    pts = sample_points(random.Random(8), c, 63) + [None]
+    table = ops.encode_affine(pts)
+    gen = torch.Generator().manual_seed(9)
+    acc = random_projective(ops, gen, table, LANES)
+    idx = torch.randint(0, table.shape[0], (LANES,), generator=gen).to(cuda_device)
+    aff = table[idx]                                          # [LANES, 2, W]
+    aff[:64] = ops.to_affine(acc.permute(2, 0, 1)[:64])       # doublings
+    aff[64:128] = ops.to_affine(acc.permute(2, 0, 1)[64:128])
+    aff[64:128, 1] = ops.f.neg(aff[64:128, 1])                # cancellations
+    pts_lm = aff.permute(1, 2, 0).contiguous()
+    neg = torch.randint(0, 2, (1, LANES), generator=gen).to(torch.int32).to(cuda_device)
+    neg[0, :128] = 0
+    run_and_compare("mixed_add", lambda: ck.mixed_add(ops, acc, pts_lm),
+                    lambda: ck.plain_mixed_add(ops, acc, pts_lm))
+    run_and_compare("mixed_add_signed", lambda: ck.mixed_add_signed(ops, acc, pts_lm, neg),
+                    lambda: ck.plain_mixed_add_signed(ops, acc, pts_lm, neg))
+    qs = torch.cat([random_projective(ops, gen, table, LANES) for _ in range(M.SUPER)])
+    run_and_compare("jac_add_multi", lambda: ck.jac_add_multi(ops, acc, qs),
+                    lambda: ck.plain_jac_add_multi(ops, acc, qs))
+
+
+@pytest.mark.parametrize("field", ["bn254_fr", "bn254_fp", "bls12_381_fr", "bls12_381_fp"])
+def test_k8_field_mul(cuda_device, field):
+    c = apt.fields.params.CURVES[field.rsplit("_", 1)[0]]
+    f = field_ops(c.fr if field.endswith("fr") else c.fp, cuda_device)
+    rng = random.Random(10)
+    n = 3000
+    vals = [rng.randrange(f.modulus) for _ in range(2 * n - 4)] + [0, 1, f.modulus - 1, 2]
+    a, b = f.encode(vals[:n]), f.encode(vals[n:])
+    run_and_compare("field_mul", lambda: ck.field_mul(f, a, b), lambda: ck.plain_field_mul(f, a, b))
+
+
 def test_wrappers_check_inputs(setup):
     ops, table, _ = setup
     p = torch.zeros((3, ops.W, LANES), dtype=torch.int32, device=ops.device)
@@ -122,7 +202,7 @@ def test_device_msm_two_level(cuda_device):
     ctx = M.msm_ctx(BN254, cuda_device)
     ck.reset_launch_counts()
     got = ctx.msm_to_affine_int(ctx.ops.encode_affine(pts), ctx.fr.encode(scalars), kind="mont")
-    assert all(ck.LAUNCHES[k] > 0 for k in ck.KERNELS), ck.LAUNCHES
+    assert all(ck.LAUNCHES[k] > 0 for k in ck.MSM_KERNELS), ck.LAUNCHES
     assert got == M.host_msm(BN254, pts, scalars)
 
 
@@ -170,21 +250,25 @@ def test_four_step_coset_matches_radix2(cuda_device):
     assert torch.equal(fsp.intt_scr(ev, coset_shift=g), coeffs)
 
 
-def test_small_proof_gpu_equals_cpu(cuda_device, monkeypatch):
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_small_proof_gpu_equals_cpu(cuda_device, monkeypatch, curve):
     """With every commit through the device MSM, the GPU's proof bytes are
     the CPU's, through either quotient path."""
     monkeypatch.setattr(M, "HOST_MSM_MAX", 0)
+    c = apt.fields.params.CURVES[curve]
+    setup_name = apt.SetupName.TEST_ONLY_BN254 if curve == "bn254" else (
+        apt.SetupName.ETHEREUM_KZG_CEREMONY_BLS12_381)
     P = pythagorean(apt)
     blobs = []
     for device in (cuda_device, torch.device("cpu")):
-        cc = apt.compile(P, BN254, apt.SetupName.TEST_ONLY_BN254, device=device)
+        cc = apt.compile(P, c, setup_name, device=device)
         for lm in ("0", "1"):
             monkeypatch.setenv("AP_QUOTIENT_LM", lm)
             prover = Prover(cc.pk, cc.ccs, rng=False)
             wit = witness_mod.solve(cc.ccs, P(a=3, b=4, c=5), commitment_solver=prover.bsb_solver)
             proof = prover.prove(wit)
             assert V.verify(cc.vk, proof, [3, 4])
-            blobs.append(marshal_proof(BN254, proof))
+            blobs.append(marshal_proof(c, proof))
     assert len(set(blobs)) == 1
 
 

@@ -21,7 +21,7 @@ from algoplonk_tpu.fields import limbs as jax_limbs
 from algoplonk_tpu.fields.params import BN254 as JBN254
 from algoplonk_tpu.ops import curve_pallas as cp
 from algoplonk_tpu_torch import BN254
-from algoplonk_tpu_torch._ref.host import fp as hfp
+from algoplonk_tpu_torch.host import fp as hfp
 from algoplonk_tpu_torch.fields.words import word_field, words_to_ints
 from algoplonk_tpu_torch.ops import curve_kernels as ck
 from algoplonk_tpu_torch.ops.curve import curve_ops

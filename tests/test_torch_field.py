@@ -14,7 +14,7 @@ import torch
 from algoplonk_tpu.fields import limbs as jax_limbs
 from algoplonk_tpu.fields.params import BN254_FP, BN254_FR
 from algoplonk_tpu.ops.field import field_ops as jax_field_ops
-from algoplonk_tpu_torch._ref.fields import params as tparams
+from algoplonk_tpu_torch.fields import params as tparams
 from algoplonk_tpu_torch.fields import words as Wd
 from algoplonk_tpu_torch.ops.field import field_ops
 from torch_parity import field_values, jax_ints, mont_words_to_jax_limbs, one_torch_thread, port_ints  # noqa: F401
@@ -70,7 +70,7 @@ def test_limbs_words_roundtrip(fp):
 def test_binary_ops_match_reference(fp, op):
     a, b = operands(fp, 2)
     jf = jax_field_ops(fp)
-    tf = field_ops(port_fp(fp))
+    tf = field_ops(port_fp(fp), "cpu")
     want = jf.decode(getattr(jf, op)(jf.encode(a), jf.encode(b)))
     got = tf.decode(getattr(tf, op)(tf.encode(a), tf.encode(b)))
     assert got == want
@@ -81,7 +81,7 @@ def test_binary_ops_match_reference(fp, op):
 def test_unary_ops_match_reference(fp, op):
     a, _ = operands(fp, 3)
     jf = jax_field_ops(fp)
-    tf = field_ops(port_fp(fp))
+    tf = field_ops(port_fp(fp), "cpu")
     want = jf.decode(getattr(jf, op)(jf.encode(a)))
     got = tf.decode(getattr(tf, op)(tf.encode(a)))
     assert got == want
@@ -92,7 +92,7 @@ def test_pow_mont_conversions(fp):
     a, _ = operands(fp, 4)
     p = fp.modulus
     jf = jax_field_ops(fp)
-    tf = field_ops(port_fp(fp))
+    tf = field_ops(port_fp(fp), "cpu")
     e = 0xA1607_0001
     want = jf.decode(jf.pow_fixed(jf.encode(a), e))
     assert tf.decode(tf.pow(tf.encode(a), e)) == want
@@ -106,7 +106,7 @@ def test_pow_mont_conversions(fp):
 @pytest.mark.parametrize("fp", FIELDS, ids=IDS)
 def test_select_is_zero(fp):
     a, b = operands(fp, 5)
-    tf = field_ops(port_fp(fp))
+    tf = field_ops(port_fp(fp), "cpu")
     ta, tb = tf.encode(a), tf.encode(b)
     assert tf.is_zero(ta).tolist() == [v == 0 for v in a]
     cond = torch.tensor([i % 2 == 0 for i in range(len(a))])
@@ -119,7 +119,7 @@ def test_encode_reduces_any_int(fp):
     """The port's encoder reduces mod p and takes negative ints, where the
     reference's encode_bytes requires canonical non-negative input."""
     p = fp.modulus
-    tf = field_ops(port_fp(fp))
+    tf = field_ops(port_fp(fp), "cpu")
     vals = [-1, -p, p, p + 5, 2 * p - 1, 3 * p + 7, -(5 * p) - 3, 1 << 255]
     assert tf.decode(tf.encode(vals)) == [v % p for v in vals]
     assert tf.decode(tf.encode_bytes(vals)) == [v % p for v in vals]
@@ -131,7 +131,7 @@ def test_broadcast_and_wide_batches(fp):
     shift-and-add column product instead of the outer product."""
     rng = random.Random(6)
     p = fp.modulus
-    tf = field_ops(port_fp(fp))
+    tf = field_ops(port_fp(fp), "cpu")
     xs = [rng.randrange(p) for _ in range(300)] + [p - 1, 0]
     k = rng.randrange(p)
     got = tf.decode(tf.mul(tf.encode(xs), tf.encode([k])[0]))

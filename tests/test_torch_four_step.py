@@ -22,7 +22,7 @@ from algoplonk_tpu.ops.ntt_pallas import _pass_kernel
 from algoplonk_tpu.ops.ntt_pallas import four_step_plan as jax_four_step_plan
 from algoplonk_tpu.plonk.marshal import marshal_proof as jax_marshal
 from algoplonk_tpu.plonk.prove import Prover as JaxProver
-from algoplonk_tpu_torch._ref.frontend import witness as witness_mod
+from algoplonk_tpu_torch.frontend import witness as witness_mod
 from algoplonk_tpu_torch.ops import ntt_kernels as nk
 from algoplonk_tpu_torch.ops.field import field_ops
 from algoplonk_tpu_torch.plonk import verify as V
@@ -80,7 +80,7 @@ def test_transforms_match_reference_four_step(fields, log_n, shift):
     jf, tf = fields
     coeffs = rand_ints(10 + log_n, 1 << log_n)
     jfs = jax_four_step_plan("bn254", log_n)
-    tfs = nk.four_step_plan("bn254", log_n)
+    tfs = nk.four_step_plan("bn254", log_n, "cpu")
     assert (tfs.n1, tfs.n2) == (jfs.n1, jfs.n2)
     assert np.array_equal(tfs.scramble_perm(), jfs.scramble_perm())
     got = tfs.ntt_scr(tf.encode(coeffs), coset_shift=shift)
@@ -94,7 +94,7 @@ def test_transforms_match_reference_four_step(fields, log_n, shift):
 def test_scrambled_order_tables_match_reference(fields):
     jf, tf = fields
     jfs = jax_four_step_plan("bn254", 6)
-    tfs = nk.four_step_plan("bn254", 6)
+    tfs = nk.four_step_plan("bn254", 6, "cpu")
     assert tf.decode(tfs.coset_x_scr(G)) == from_lm(jfs.coset_x_scr(G))
     pattern = rand_ints(20, 4)
     assert tf.decode(tfs.tile_by_k_mod4(pattern)) == from_lm(jfs.tile_by_k_mod4(pattern))

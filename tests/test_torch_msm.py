@@ -17,7 +17,7 @@ from algoplonk_tpu.fields.params import BN254 as JBN254
 from algoplonk_tpu.ops import msm as JM
 from algoplonk_tpu.ops.curve import curve_ops as jax_curve_ops
 from algoplonk_tpu_torch import BN254
-from algoplonk_tpu_torch._ref.host import fp as hfp
+from algoplonk_tpu_torch.host import fp as hfp
 from algoplonk_tpu_torch.ops import msm as M
 from algoplonk_tpu_torch.ops.curve import curve_ops
 from algoplonk_tpu_torch.ops.field import field_ops

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from algoplonk_tpu_torch import BN254
-from algoplonk_tpu_torch._ref.host import fp as hfp
+from algoplonk_tpu_torch.host import fp as hfp
 from algoplonk_tpu_torch.ops import curve_kernels as ck
 from algoplonk_tpu_torch.ops import msm as M
 from algoplonk_tpu_torch.ops.curve import curve_ops

@@ -11,7 +11,7 @@ from algoplonk_tpu.ops import poly as jpoly
 from algoplonk_tpu.ops.field import field_ops as jax_field_ops
 from algoplonk_tpu.ops.ntt import ntt_plan as jax_ntt_plan
 from algoplonk_tpu_torch import BN254
-from algoplonk_tpu_torch._ref.fields import params as tparams
+from algoplonk_tpu_torch.fields import params as tparams
 from algoplonk_tpu_torch.ops import poly
 from algoplonk_tpu_torch.ops.field import field_ops
 from algoplonk_tpu_torch.ops.ntt import ntt_plan
@@ -36,7 +36,7 @@ def fields():
 @pytest.mark.parametrize("log_n", [3, 4])
 def test_ntt_intt_match_reference(log_n):
     xs = rand_ints(log_n, 1 << log_n)
-    jp, tp = jax_ntt_plan("bn254", log_n), ntt_plan("bn254", log_n)
+    jp, tp = jax_ntt_plan("bn254", log_n), ntt_plan("bn254", log_n, "cpu")
     assert tp.omega == jp.omega
     jf, tf = jp.f, tp.f
     evals = tp.ntt(tf.encode(xs))
@@ -50,7 +50,7 @@ def test_coset_ntt_match_reference(shift):
     shift = BN254.coset_shift if shift == "coset" else shift
     log_n = 4
     xs = rand_ints(40, 1 << log_n)
-    jp, tp = jax_ntt_plan("bn254", log_n), ntt_plan("bn254", log_n)
+    jp, tp = jax_ntt_plan("bn254", log_n), ntt_plan("bn254", log_n, "cpu")
     jf, tf = jp.f, tp.f
     evals = tp.coset_ntt(tf.encode(xs), shift)
     assert tf.decode(evals) == jf.decode(jp.coset_ntt(jf.encode(xs), shift))
@@ -61,18 +61,18 @@ def test_ntt_plans_keyed_on_compat_mode():
     """Twiddles derive from the domain generator, which the gnark-compat
     mode selects: a plan built in one mode is never served in the other.
     The port's params module is its own instance, so both are switched."""
-    plain = ntt_plan("bn254", 3)
+    plain = ntt_plan("bn254", 3, "cpu")
     try:
         tparams.set_gnark_compat(True)
         jparams.set_gnark_compat(True)
-        compat = ntt_plan("bn254", 3)
+        compat = ntt_plan("bn254", 3, "cpu")
         assert compat is not plain
         assert compat.omega == tparams.domain_generator("bn254", 3)
         assert compat.omega == jax_ntt_plan("bn254", 3).omega
     finally:
         tparams.set_gnark_compat(False)
         jparams.set_gnark_compat(False)
-    assert ntt_plan("bn254", 3) is plain
+    assert ntt_plan("bn254", 3, "cpu") is plain
 
 
 def test_prefix_products_and_powers(fields):

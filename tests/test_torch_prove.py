@@ -16,7 +16,7 @@ import algoplonk_tpu_torch as apt
 from algoplonk_tpu.frontend import witness as jax_witness
 from algoplonk_tpu.plonk.marshal import marshal_proof as jax_marshal
 from algoplonk_tpu.plonk.prove import Prover as JaxProver
-from algoplonk_tpu_torch._ref.frontend import witness as witness_mod
+from algoplonk_tpu_torch.frontend import witness as witness_mod
 from algoplonk_tpu_torch.ops import msm as M
 from algoplonk_tpu_torch.plonk import verify as V
 from algoplonk_tpu_torch.plonk.keys import proving_key_from_jax
@@ -56,7 +56,7 @@ def port_pyth():
 def test_port_setup_matches_jax_keys(jax_pyth, port_pyth):
     """The port's test SRS and setup give the JAX keys, value for value."""
     jcc = jax_pyth[0]
-    carried = proving_key_from_jax(jcc.pk)
+    carried = proving_key_from_jax(jcc.pk, "cpu")
     pk = port_pyth.pk
     for name in ("qk_ev", "s1_ev", "s2_ev", "s3_ev", "ql_c", "qr_c", "qm_c",
                  "qo_c", "qk_c", "s1_c", "s2_c", "s3_c", "srs_g1"):
@@ -78,7 +78,7 @@ def test_proof_bytes_match_jax(jax_pyth, port_pyth, monkeypatch, key, host_max):
     monkeypatch.setattr(M, "HOST_MSM_MAX", host_max)
     jcc, _, want = jax_pyth
     if key == "jax_key":
-        pk, ccs = proving_key_from_jax(jcc.pk), apt.compile_circuit(TPyth, apt.BN254)
+        pk, ccs = proving_key_from_jax(jcc.pk, "cpu"), apt.compile_circuit(TPyth, apt.BN254)
     else:
         pk, ccs = port_pyth.pk, port_pyth.ccs
     proof = port_proof(pk, ccs, TPyth(**ASSIGN))
@@ -90,7 +90,7 @@ def test_proof_bytes_match_jax(jax_pyth, port_pyth, monkeypatch, key, host_max):
 def test_bsb22_bytes_match_jax():
     jcc, _, want = jax_proof_bytes(one_commit(ap), dict(x=49, y=7))
     TOne = one_commit(apt)
-    pk = proving_key_from_jax(jcc.pk)
+    pk = proving_key_from_jax(jcc.pk, "cpu")
     proof = port_proof(pk, apt.compile_circuit(TOne, apt.BN254), TOne(x=49, y=7))
     assert marshal_proof(apt.BN254, proof) == want
     assert V.verify(pk.vk, proof, [49])

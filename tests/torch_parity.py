@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from algoplonk_tpu_torch._ref.fields import limbs as ref_limbs
-from algoplonk_tpu_torch._ref.host import fp as hfp
+from algoplonk_tpu_torch.fields.params import LIMB_BITS
+from algoplonk_tpu_torch.host import fp as hfp
 from algoplonk_tpu_torch.fields.words import WordField, mont_words_to_ints, word_field
 
 
@@ -58,7 +58,7 @@ def jax_ints(arr, fp) -> list[int]:
     for row in a.reshape(-1, a.shape[-1]):
         v = 0
         for limb in reversed(row.tolist()):
-            v = (v << ref_limbs.LIMB_BITS) + limb
+            v = (v << LIMB_BITS) + limb
         out.append(v * R_inv % fp.modulus)
     return out
 
@@ -66,8 +66,14 @@ def jax_ints(arr, fp) -> list[int]:
 def mont_words_to_jax_limbs(arr, wf: WordField) -> np.ndarray:
     """Port Montgomery words [..., W] -> reference Montgomery limbs [..., L]."""
     a = np.asarray(arr)
-    ints = mont_words_to_ints(a.reshape(-1, a.shape[-1]), wf)
-    return ref_limbs.ints_to_mont_limbs(ints, wf.fp).reshape(a.shape[:-1] + (wf.fp.nlimbs,))
+    fp = wf.fp
+    mask = (1 << LIMB_BITS) - 1
+    limbs = [
+        (fp.to_mont(v) >> (LIMB_BITS * k)) & mask
+        for v in mont_words_to_ints(a.reshape(-1, a.shape[-1]), wf)
+        for k in range(fp.nlimbs)
+    ]
+    return np.asarray(limbs, np.int32).reshape(a.shape[:-1] + (fp.nlimbs,))
 
 
 def port_ints(t: torch.Tensor, fp) -> list[int]:

@@ -19,7 +19,8 @@
 // 8 words and its Fp at 12), and each object exports its entry points under
 // names that end in its width (lanes.cuh).  What
 // bounds them on the H100 is what bounds K1-K4: 32-bit integer multiplies
-// and, at W = 12, registers.  A simple kernel that is right is all this file
+// and, at W = 12, registers.  K5-K7 run the lazy formulas of curve.cuh and
+// store canonical words; K8 is the strict multiply.  A simple kernel that is right is all this file
 // claims; each is held word for word against its plain PyTorch version
 // (algoplonk_tpu_torch/ops/curve_kernels.py).
 //
@@ -66,7 +67,7 @@ mixed_add_kernel(const uint32_t* __restrict__ acc,
   load_affine<W>(x2, y2, pts, B, b);
   const bool q_inf = ap::is_zero<W>(x2) && ap::is_zero<W>(y2);
   ap::mixed_add<W>(a, x2, y2, q_inf, cc);
-  store_proj<W>(out, a, B, b);
+  store_proj<W>(out, a, B, b, cc.f.p);
 }
 
 // K6: as K5, with the point negated on lanes where neg [1, B] is non-zero.
@@ -87,13 +88,18 @@ mixed_add_signed_kernel(const uint32_t* __restrict__ acc,
   const bool q_inf = ap::is_zero<W>(x2) && ap::is_zero<W>(y2);
   if (neg[b] != 0) ap::neg_mod<W>(y2, cc.f.p);
   ap::mixed_add<W>(a, x2, y2, q_inf, cc);
-  store_proj<W>(out, a, B, b);
+  store_proj<W>(out, a, B, b, cc.f.p);
 }
+
+// K7's blocks per SM for ptxas: with no minimum, ptxas held K7 at W = 12 to
+// 168 registers and spilled 28 bytes; a minimum of 2 gives it 190 and no
+// spill (the step loop's unrolling made no difference).
+constexpr int kK7MinBlocks = AP_W == 8 ? 1 : 2;
 
 // K7: acc [3, W, B] + qs[0..g) ([3g, W, B]) -> out [3, W, B], the
 // accumulator kept in registers and stored once.
 template <int W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kK7MinBlocks)
 jac_add_multi_kernel(const uint32_t* __restrict__ acc,
                      const uint32_t* __restrict__ qs,
                      uint32_t* __restrict__ out, int64_t B, int g,
@@ -106,7 +112,7 @@ jac_add_multi_kernel(const uint32_t* __restrict__ acc,
     load_proj<W>(q, qs + (int64_t)3 * k * W * B, B, b);
     ap::jac_add<W>(a, a, q, cc);
   }
-  store_proj<W>(out, a, B, b);
+  store_proj<W>(out, a, B, b, cc.f.p);
 }
 
 // K8: a, b [N, W] canonical Montgomery residues -> a b R^-1 mod p [N, W].
@@ -131,7 +137,8 @@ field_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 
 extern "C" {
 
-// consts: host pointer to the packed CurveConsts<AP_W> words (p, n0, one, b3).
+// consts: host pointer to the packed CurveConsts<AP_W> words (p, n0, one,
+// 2p, k3b).
 int AP_ENTRY(ap_mixed_add)(const void* acc, const void* pts, void* out,
                            int64_t B, const void* consts, void* stream) {
   const auto cc = *static_cast<const ap::CurveConsts<AP_W>*>(consts);

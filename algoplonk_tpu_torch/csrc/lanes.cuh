@@ -2,7 +2,10 @@
 // msm_kernels.cu and curve_kernels.cu.
 //
 // Layout, as on the TPU: limbs-major [coord, W, B] int32 words, lane b of
-// word w of coordinate k at (k * W + w) * B + b.  One thread owns one lane.
+// word w of coordinate k at (k * W + w) * B + b.  One thread owns one lane
+// (K2 runs several threads per lane: msm_kernels.cu).  Points are loaded
+// canonical, carried lazily through the formulas (curve.cuh) and stored
+// canonical.
 //
 // Those two sources are compiled once per width, with -DAP_W=8 and
 // -DAP_W=12 (ops/_build.py), so that the long W = 12 builds run in
@@ -43,14 +46,20 @@ __device__ __forceinline__ void load_proj(Proj<W>& q, const uint32_t* src,
   }
 }
 
+// Stores a lazy point (coordinates below 2p) in canonical form.
 template <int W>
 __device__ __forceinline__ void store_proj(uint32_t* dst, const Proj<W>& q,
-                                           int64_t B, int64_t b) {
+                                           int64_t B, int64_t b,
+                                           const uint32_t* p) {
+  uint32_t x[W], y[W], z[W];
+  cond_sub<W>(x, q.x, p);
+  cond_sub<W>(y, q.y, p);
+  cond_sub<W>(z, q.z, p);
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    dst[(0 * W + w) * B + b] = q.x[w];
-    dst[(1 * W + w) * B + b] = q.y[w];
-    dst[(2 * W + w) * B + b] = q.z[w];
+    dst[(0 * W + w) * B + b] = x[w];
+    dst[(1 * W + w) * B + b] = y[w];
+    dst[(2 * W + w) * B + b] = z[w];
   }
 }
 

@@ -16,16 +16,30 @@
 // stayed in VMEM there.
 //
 // What bounds them on the H100: 32-bit integer multiply throughput and
-// registers.  A mixed add is 13 Montgomery multiplies (~3,500 integer
-// multiply instructions at W = 8, ~7,800 at W = 12) on ~100 (W = 8) or ~150
+// registers.  A mixed add is 11 Montgomery multiplies (curve.cuh; 2,992
+// multiply instructions at W = 8, 6,600 at W = 12) on ~100 (W = 8) or ~150
 // (W = 12) live words per lane; memory traffic per add is 3W words of
 // accumulator (once per kernel) plus 2W words per gathered point.  The design
-// answers with one lane per thread, fully unrolled word loops, strict
-// (canonical) arithmetic so no bound tracking is needed, and 128-thread blocks
-// so the register file, not the block size, sets occupancy.  At W = 12 a
-// projective point is 36 words and ptxas spills (chip_smoke.py prints its
-// report).  Making them fast (lazy reduction, PTX carry chains, shared point
-// tables) is later work.
+// answers with fully unrolled word loops on the lazy field core (field.cuh,
+// PTX carry chains, values kept below 2p and made canonical once, at the
+// store), and:
+// - K1 reads each gathered row as 16-byte vectors and fetches the next
+//   step's row (and the index after it) before the current step's add: into
+//   registers at W = 8, with cp.async into a per-thread slot of shared
+//   memory, double-buffered, at W = 12, where registers are short.  Its block
+//   size is set per width (kK1Threads) so that a commit's lanes spread over
+//   all 132 SMs.
+// - K2 runs T threads per lane (T of 1, 4 or 16, chosen by the wrapper
+//   from the lane and step counts alone), so that the few lanes of phase 2a
+//   fill the card: each thread sums its g/T steps, the T partial sums are
+//   scanned across the lane's threads (Kogge-Stone, exclusive, acc put in
+//   front, through warp shuffles: a lane's threads share a warp), and each
+//   thread rescans its steps from its carry-in.  The serial depth drops from
+//   g adds to g/T - 1 + log2 T + g/T.  The RCB formulas are complete, so
+//   the re-association is safe; the outputs equal the sequential scan's as
+//   points, and word for word the plain version's, which follows the same
+//   association (ops/curve_kernels.py plain_jac_add_multi_scan).
+// ptxas fits every kernel without spills (chip_smoke.py prints its report).
 //
 // Every kernel is a template on W.  The file is compiled once for W = 8
 // (BN254's fields) and once for W = 12 (BLS12-381's base field), and each
@@ -56,55 +70,183 @@ using ap::blocks_for;
 using ap::load_proj;
 using ap::store_proj;
 
-// K1: acc [3, W, B] + g signed affine points gathered from pts [nrows, 2W]
-// at packed [g, B] -> out [3, W, B].
+// K1's block size and the blocks an SM must hold (ptxas's register budget).
+#if AP_W == 8
+constexpr int kK1Threads = 128;
+constexpr int kK1MinBlocks = 3;
+#else
+constexpr int kK1Threads = 64;
+constexpr int kK1MinBlocks = 5;
+#endif
+
+__device__ __forceinline__ int64_t row_of(int32_t pk, int64_t nrows) {
+  const int64_t row = pk & kRowMask;
+  return row > nrows - 1 ? nrows - 1 : row;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(gmem)
+               : "memory");
+}
+
 template <int W>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void unpack_row(uint32_t* x2, uint32_t* y2,
+                                           const uint4* v) {
+  uint32_t r[2 * W];
+#pragma unroll
+  for (int c = 0; c < W / 2; ++c) {
+    r[4 * c] = v[c].x;
+    r[4 * c + 1] = v[c].y;
+    r[4 * c + 2] = v[c].z;
+    r[4 * c + 3] = v[c].w;
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    x2[w] = r[w];
+    y2[w] = r[W + w];
+  }
+}
+
+// One step of K1: acc <- acc + (+-) the gathered row.
+template <int W>
+__device__ __forceinline__ void signed_step(ap::Proj<W>& a, const uint4* row,
+                                            int32_t pk,
+                                            const ap::CurveConsts<W>& cc) {
+  uint32_t x2[W], y2[W];
+  unpack_row<W>(x2, y2, row);
+  // identity from the raw coordinates, before the sign is applied
+  const bool q_inf = ap::is_zero<W>(x2) && ap::is_zero<W>(y2);
+  if ((pk >> kSignShift) == 1) ap::neg_mod<W>(y2, cc.f.p);
+  ap::mixed_add<W>(a, x2, y2, q_inf, cc);
+}
+
+// K1: acc [3, W, B] + g signed affine points gathered from pts [nrows, 2W]
+// at packed [g, B] -> out [3, W, B].  pts is 16-byte aligned (the wrapper
+// checks), and a row is W / 2 16-byte vectors.
+template <int W>
+__global__ void __launch_bounds__(kK1Threads, kK1MinBlocks)
 mixed_add_signed_multi_kernel(const uint32_t* __restrict__ acc,
                               const uint32_t* __restrict__ pts,
                               const int32_t* __restrict__ packed,
                               uint32_t* __restrict__ out, int64_t B, int g,
                               int64_t nrows, ap::CurveConsts<W> cc) {
+  constexpr int kV = W / 2;             // 16-byte vectors per row
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
+  const uint4* rows = reinterpret_cast<const uint4*>(pts);
   ap::Proj<W> a;
   load_proj<W>(a, acc, B, b);
-  for (int k = 0; k < g; ++k) {
-    const int32_t pk = packed[(int64_t)k * B + b];
-    int64_t row = pk & kRowMask;
-    if (row > nrows - 1) row = nrows - 1;
-    const bool neg = ((pk >> kSignShift) == 1);
-    uint32_t x2[W], y2[W];
-    const uint32_t* src = pts + row * (2 * W);
+  int32_t pk = g > 0 ? packed[b] : 0;
+  int32_t pk_next = g > 1 ? packed[B + b] : 0;
+  if constexpr (W <= 8) {
+    // register double buffer
+    uint4 cur[kV], nxt[kV];
+    if (g > 0) {
+      const uint4* src = rows + row_of(pk, nrows) * kV;
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-      x2[w] = src[w];
-      y2[w] = src[W + w];
+      for (int c = 0; c < kV; ++c) cur[c] = src[c];
     }
-    // identity from the raw coordinates, before the sign is applied
-    const bool q_inf = ap::is_zero<W>(x2) && ap::is_zero<W>(y2);
-    if (neg) ap::neg_mod<W>(y2, cc.f.p);
-    ap::mixed_add<W>(a, x2, y2, q_inf, cc);
+    for (int k = 0; k < g; ++k) {
+      const int32_t pk_after = k + 2 < g ? packed[(int64_t)(k + 2) * B + b] : 0;
+      if (k + 1 < g) {
+        const uint4* s2 = rows + row_of(pk_next, nrows) * kV;
+#pragma unroll
+        for (int c = 0; c < kV; ++c) nxt[c] = s2[c];
+      }
+      signed_step<W>(a, cur, pk, cc);
+#pragma unroll
+      for (int c = 0; c < kV; ++c) cur[c] = nxt[c];
+      pk = pk_next;
+      pk_next = pk_after;
+    }
+  } else {
+    // cp.async into this thread's two slots of shared memory, laid out
+    // [slot][vector][thread] so that a warp's 16-byte reads hit distinct
+    // banks
+    extern __shared__ uint4 slots[];
+    const int nt = blockDim.x, tid = threadIdx.x;
+    auto issue = [&](int slot, int32_t p) {
+      const uint4* s2 = rows + row_of(p, nrows) * kV;
+#pragma unroll
+      for (int c = 0; c < kV; ++c) cp_async16(&slots[(slot * kV + c) * nt + tid], s2 + c);
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    };
+    if (g > 0) issue(0, pk);
+    for (int k = 0; k < g; ++k) {
+      const int32_t pk_after = k + 2 < g ? packed[(int64_t)(k + 2) * B + b] : 0;
+      if (k + 1 < g) {
+        issue((k + 1) & 1, pk_next);
+        asm volatile("cp.async.wait_group 1;" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+      }
+      uint4 cur[kV];
+      const int slot = k & 1;
+#pragma unroll
+      for (int c = 0; c < kV; ++c) cur[c] = slots[(slot * kV + c) * nt + tid];
+      signed_step<W>(a, cur, pk, cc);
+      pk = pk_next;
+      pk_next = pk_after;
+    }
   }
-  store_proj<W>(out, a, B, b);
+  store_proj<W>(out, a, B, b, cc.f.p);
+}
+
+template <int W>
+__device__ __forceinline__ void shfl_up_proj(ap::Proj<W>& dst,
+                                             const ap::Proj<W>& src, int d,
+                                             int T) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    dst.x[w] = __shfl_up_sync(0xffffffffu, src.x[w], d, T);
+    dst.y[w] = __shfl_up_sync(0xffffffffu, src.y[w], d, T);
+    dst.z[w] = __shfl_up_sync(0xffffffffu, src.z[w], d, T);
+  }
 }
 
 // K2: acc [3, W, B] + qs[0..g) ([3g, W, B]), emitting the accumulator after
-// every step: out[3k:3k+3] = acc + qs[0] + ... + qs[k].
+// every step: out[3k:3k+3] = acc + qs[0] + ... + qs[k], with T threads per
+// lane (T a power of two <= 16 dividing g).  Thread s of lane b is thread
+// b * T + s of the grid, so a lane's threads share a warp; lanes past B
+// compute on lane B - 1's data, take part in the shuffles, and store nothing.
 template <int W>
 __global__ void __launch_bounds__(kThreads)
 jac_add_multi_scan_kernel(const uint32_t* __restrict__ acc,
                           const uint32_t* __restrict__ qs,
-                          uint32_t* __restrict__ out, int64_t B, int g,
+                          uint32_t* __restrict__ out, int64_t B, int g, int T,
                           ap::CurveConsts<W> cc) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  ap::Proj<W> a, q;
-  load_proj<W>(a, acc, B, b);
-  for (int k = 0; k < g; ++k) {
-    load_proj<W>(q, qs + (int64_t)3 * k * W * B, B, b);
-    ap::jac_add<W>(a, a, q, cc);
-    store_proj<W>(out + (int64_t)3 * k * W * B, a, B, b);
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = (int)(t % T);
+  const int64_t lane = t / T;
+  const bool live = lane < B;
+  const int64_t b = live ? lane : B - 1;
+  const int L = g / T;
+  const int k0 = s * L;
+  const int64_t step = (int64_t)3 * W * B;
+  ap::Proj<W> y, q;
+  if (T > 1) {
+    // 1. this thread's partial sum qs[k0] + ... + qs[k0 + L - 1]
+    load_proj<W>(y, qs + k0 * step, B, b);
+    for (int j = 1; j < L; ++j) {
+      load_proj<W>(q, qs + (k0 + j) * step, B, b);
+      ap::jac_add<W>(y, y, q, cc);
+    }
+    // 2. exclusive scan over the lane's threads: shift the partial sums up
+    // by one, acc in front, then Kogge-Stone
+    shfl_up_proj<W>(q, y, 1, T);
+    if (s > 0) y = q;
+  }
+  if (s == 0) load_proj<W>(y, acc, B, b);
+  for (int d = 1; d < T; d <<= 1) {
+    shfl_up_proj<W>(q, y, d, T);
+    if (s >= d) ap::jac_add<W>(y, q, y, cc);
+  }
+  // 3. rescan this thread's steps from its carry-in
+  for (int j = 0; j < L; ++j) {
+    load_proj<W>(q, qs + (k0 + j) * step, B, b);
+    ap::jac_add<W>(y, y, q, cc);
+    if (live) store_proj<W>(out + (k0 + j) * step, y, B, b, cc.f.p);
   }
 }
 
@@ -119,7 +261,7 @@ jac_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
   load_proj<W>(a, p, B, b);
   load_proj<W>(c, q, B, b);
   ap::jac_add<W>(a, a, c, cc);
-  store_proj<W>(out, a, B, b);
+  store_proj<W>(out, a, B, b, cc.f.p);
 }
 
 // K4: x [R, W, B] (any W-word values) -> canonical x mod p, one Montgomery
@@ -143,28 +285,35 @@ canon_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
 
 extern "C" {
 
-// consts: host pointer to the packed CurveConsts<AP_W> words (p, n0, one, b3).
+// consts: host pointer to the packed CurveConsts<AP_W> words (p, n0, one,
+// 2p, k3b).
 int AP_ENTRY(ap_mixed_add_signed_multi)(const void* acc, const void* pts,
                                         const void* packed, void* out,
                                         int64_t B, int g, int64_t nrows,
                                         const void* consts, void* stream) {
   const auto cc = *static_cast<const ap::CurveConsts<AP_W>*>(consts);
+  // W > 8: two row slots of shared memory per thread for cp.async
+  const size_t smem = AP_W > 8 ? (size_t)2 * (AP_W / 2) * 16 * kK1Threads : 0;
   if (B > 0)
-    mixed_add_signed_multi_kernel<AP_W><<<blocks_for(B), kThreads, 0,
-                                          (cudaStream_t)stream>>>(
-        (const uint32_t*)acc, (const uint32_t*)pts, (const int32_t*)packed,
-        (uint32_t*)out, B, g, nrows, cc);
+    mixed_add_signed_multi_kernel<AP_W>
+        <<<(unsigned)((B + kK1Threads - 1) / kK1Threads), kK1Threads, smem,
+           (cudaStream_t)stream>>>(
+            (const uint32_t*)acc, (const uint32_t*)pts, (const int32_t*)packed,
+            (uint32_t*)out, B, g, nrows, cc);
   return (int)cudaGetLastError();
 }
 
+// T: threads per lane, a power of two <= 16 that divides g.
 int AP_ENTRY(ap_jac_add_multi_scan)(const void* acc, const void* qs, void* out,
-                                    int64_t B, int g, const void* consts,
-                                    void* stream) {
+                                    int64_t B, int g, int T,
+                                    const void* consts, void* stream) {
+  if (T < 1 || T > 16 || (T & (T - 1)) != 0 || g % T != 0)
+    return (int)cudaErrorInvalidValue;
   const auto cc = *static_cast<const ap::CurveConsts<AP_W>*>(consts);
-  if (B > 0)
-    jac_add_multi_scan_kernel<AP_W><<<blocks_for(B), kThreads, 0,
+  if (B > 0 && g > 0)
+    jac_add_multi_scan_kernel<AP_W><<<blocks_for(B * T), kThreads, 0,
                                       (cudaStream_t)stream>>>(
-        (const uint32_t*)acc, (const uint32_t*)qs, (uint32_t*)out, B, g, cc);
+        (const uint32_t*)acc, (const uint32_t*)qs, (uint32_t*)out, B, g, T, cc);
   return (int)cudaGetLastError();
 }
 

@@ -95,7 +95,7 @@ def _set_signatures(lib) -> None:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     per_width = {
         "ap_mixed_add_signed_multi": [vp, vp, vp, vp, i64, i32, i64, vp, vp],
-        "ap_jac_add_multi_scan": [vp, vp, vp, i64, i32, vp, vp],
+        "ap_jac_add_multi_scan": [vp, vp, vp, i64, i32, i32, vp, vp],
         "ap_jac_add": [vp, vp, vp, i64, vp, vp],
         "ap_canon": [vp, vp, i64, i64, vp, vp],
         "ap_consts_words": [],

@@ -22,6 +22,13 @@ takes limbs-major ``[coord, W, B]`` int32 (lane axis last), as the TPU
 kernels take it; K8 takes batch-major ``[N, W]``.  Each is built for W = 8
 (BN254, BLS12-381's Fr) and W = 12 (BLS12-381's Fp).
 
+The curve kernels run a lazy field core (values below 2p, made canonical at
+the store), valid only for a field with 4p < R; ``check_lazy_headroom``
+refuses any other when the constants are packed.  K2 runs ``T`` threads per
+lane (``scan_threads``, a function of the lane and step counts alone) and
+re-associates the scan; its plain version takes the same T and follows the
+same association, so the two stay equal word for word.
+
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
 kernel or raises, with no fallback.  Each wrapper counts its kernel launches
 in ``LAUNCHES`` (by kernel) and ``LAUNCHES_BY_WIDTH`` (by kernel and W);
@@ -35,7 +42,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..fields.words import WordField, ints_to_mont_words, ints_to_words
+from ..fields.words import WordField, ints_to_words
 from ._build import WIDTHS, check_tensor, entry, raise_on, stream_of
 from .curve import CurveOps
 from .field import FieldOps
@@ -85,14 +92,54 @@ def plain_mixed_add_signed_multi(ops: CurveOps, acc, pts_flat, packed):
     return _lm(a)
 
 
-def plain_jac_add_multi_scan(ops: CurveOps, acc, qs):
+SCAN_THREADS = (1, 4, 16)   # K2's threads per lane
+K2_MIN_THREADS = 12288      # K2 takes the least T that gives this many
+
+
+def scan_threads(B: int, g: int) -> int:
+    """K2's threads per lane for B lanes of g steps: the smallest T of
+    SCAN_THREADS that divides g and gives B T >= K2_MIN_THREADS threads,
+    or the largest that divides g.  A lane's T threads are each
+    g/T - 1 + log2 T + g/T adds deep (g at T = 1), so T = 2 would not
+    shorten the scan, and T = 8 lost to 4 or 16 at every commit shape
+    measured (PERF.md).  It reads no device property, so the CPU's plain
+    scan takes the same association as the card's kernel."""
+    fits = [T for T in SCAN_THREADS if g % T == 0]
+    for T in fits:
+        if B * T >= K2_MIN_THREADS:
+            return T
+    return fits[-1]
+
+
+def plain_jac_add_multi_scan(ops: CurveOps, acc, qs, T: int | None = None):
+    """K2's plain version, in the kernel's association for T threads per
+    lane: thread s of a lane sums steps [s L, (s + 1) L) (L = g / T), the
+    partial sums are shifted up by one with acc in front and scanned
+    Kogge-Stone (y[s] <- y[s - d] + y[s]), and each thread rescans its steps
+    from its carry-in.  T = 1 is the sequential scan."""
     g = qs.shape[0] // 3
-    a = _bm(acc)
+    T = scan_threads(acc.shape[-1], g) if T is None else T
+    if g % T:
+        raise ValueError(f"T = {T} does not divide g = {g}")
+    L = g // T
+    q = _bm(qs).reshape(-1, g, 3, ops.W).transpose(0, 1)      # [g, B, 3, W]
+    q = q.reshape(T, L, *q.shape[1:])                         # [T, L, B, 3, W]
+    y = _bm(acc)[None]
+    if T > 1:
+        part = q[: T - 1, 0]
+        for j in range(1, L):
+            part = ops.jac_add(part, q[: T - 1, j])
+        y = torch.cat([y, part])                              # [T, B, 3, W]
+        d = 1
+        while d < T:
+            y = torch.cat([y[:d], ops.jac_add(y[: T - d], y[d:])])
+            d *= 2
     outs = []
-    for k in range(g):
-        a = ops.jac_add(a, _bm(qs[3 * k : 3 * k + 3]))
-        outs.append(a)
-    return _lm(torch.cat(outs, dim=1))
+    for j in range(L):
+        y = ops.jac_add(y, q[:, j])
+        outs.append(y)
+    out = torch.stack(outs, dim=1).reshape(g, -1, 3, ops.W)  # step k = s L + j
+    return _lm(out.transpose(0, 1).reshape(-1, 3 * g, ops.W))
 
 
 def plain_jac_add(ops: CurveOps, p, q):
@@ -144,15 +191,31 @@ def field_consts(wf: WordField):
     return buf
 
 
+def check_lazy_headroom(wf: WordField) -> None:
+    """The curve kernels keep values below 2p with no final subtraction in
+    the multiply (csrc/field.cuh), which needs 4p < R = 2^(32 W)."""
+    if not 4 * wf.modulus < wf.R:
+        raise ValueError(
+            f"{wf.fp.name}: the lazy curve kernels need 4p < 2^{32 * wf.W}, and "
+            f"p has {wf.modulus.bit_length()} bits"
+        )
+
+
 def _consts(ops: CurveOps):
-    """The packed CurveConsts<W> words (p, n0, one, b3) in host memory."""
+    """The packed CurveConsts<W> words (p, n0, one, 2p, k3b) in host memory,
+    for a field with the lazy core's headroom; 3b must be a small integer."""
     key = ("curve", ops.curve.name)
     buf = _CONSTS.get(key)
     if buf is None:
         wf = ops.wf
+        check_lazy_headroom(wf)
+        k3b = 3 * ops.curve.b
+        if not 1 <= k3b < 16:
+            raise ValueError(f"3b = {k3b}: the kernels take 3b below 16")
         words = np.concatenate([
             np.frombuffer(field_consts(wf), np.int32),
-            ints_to_mont_words([3 * ops.curve.b], wf)[0],
+            ints_to_words([2 * wf.modulus], wf.W)[0],
+            np.asarray([k3b], np.int32),
         ])
         buf = _CONSTS[key] = (ctypes.c_int32 * words.size)(*words.tolist())
     return buf
@@ -166,7 +229,7 @@ def _kernel(name: str, W: int):
     known to take the constant layouts packed above."""
     if W not in _LAYOUT_CHECKED:
         words = (entry("ap_consts_words", W)(), entry("ap_field_consts_words", W)())
-        if words != (3 * W + 1, 2 * W + 1):
+        if words != (3 * W + 2, 2 * W + 1):
             raise RuntimeError(f"kernel constant layout mismatch ({words} words at W = {W})")
         _LAYOUT_CHECKED.add(W)
     return entry(f"ap_{name}", W)
@@ -184,6 +247,9 @@ def mixed_add_signed_multi(ops: CurveOps, acc, pts_flat, packed):
     check_tensor("acc", acc, (3, W, B))
     check_tensor("pts_flat", pts_flat, (pts_flat.shape[0], 2 * W))
     check_tensor("packed", packed, (g, B))
+    if pts_flat.data_ptr() % 16:
+        raise ValueError("pts_flat: the kernel reads rows as 16-byte vectors; "
+                         "expected a 16-byte aligned table")
     out = torch.empty_like(acc)
     rc = _kernel("mixed_add_signed_multi", W)(
         acc.data_ptr(), pts_flat.data_ptr(), packed.data_ptr(), out.data_ptr(),
@@ -196,17 +262,21 @@ def mixed_add_signed_multi(ops: CurveOps, acc, pts_flat, packed):
 
 def jac_add_multi_scan(ops: CurveOps, acc, qs):
     """K2: acc [3, W, B] and g projective points qs [3g, W, B] -> the
-    inclusive scan [3g, W, B], out[3k:3k+3] = acc + qs[0] + ... + qs[k]."""
+    inclusive scan [3g, W, B], out[3k:3k+3] = acc + qs[0] + ... + qs[k] (as
+    points), with ``scan_threads(B, g)`` threads per lane."""
     if acc.device.type == "cpu":
         return plain_jac_add_multi_scan(ops, acc, qs)
     W = ops.W
     B = acc.shape[-1]
     g = qs.shape[0] // 3
+    T = scan_threads(B, g)
     check_tensor("acc", acc, (3, W, B))
     check_tensor("qs", qs, (3 * g, W, B))
+    if T not in SCAN_THREADS or g % T:
+        raise ValueError(f"T = {T}: expected one of {SCAN_THREADS} dividing g = {g}")
     out = torch.empty_like(qs)
     rc = _kernel("jac_add_multi_scan", W)(
-        acc.data_ptr(), qs.data_ptr(), out.data_ptr(), B, g, _consts(ops),
+        acc.data_ptr(), qs.data_ptr(), out.data_ptr(), B, g, T, _consts(ops),
         stream_of(acc),
     )
     raise_on(rc, "jac_add_multi_scan")

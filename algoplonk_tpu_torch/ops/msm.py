@@ -125,12 +125,22 @@ def _inf_lm(ops: CurveOps, w: int):
     return torch.stack([z, one, z]).contiguous()
 
 
+def _no_mark(name: str) -> None:
+    pass
+
+
 def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
-                     k_block: int = K_BLOCK):
+                     k_block: int = K_BLOCK, mark=None):
     """[N+1, 2, W] infinity-padded affine points + [nw, N] signed digits
     -> [nw, 3, W] batch-major window sums S_w = sum_d d B_d.  K1 adds
     ``FUSE_STEPS`` points per launch, read at call time so that tests can
-    set it (the reference caps it at 8 for BLS12-381; the port keeps 16)."""
+    set it (the reference caps it at 8 for BLS12-381; the port keeps 16).
+
+    ``mark(name)``, if given, is called at the end of each part of the
+    pipeline with the part's name ('sort', 'K1', 'K2', 'K3', 'K4',
+    'gathers', 'phase 4 plain'); a caller that synchronises there can time
+    the parts."""
+    mark = mark or _no_mark
     dev = points_pad.device
     W = ops.W
     i32 = dict(dtype=torch.int32, device=dev)
@@ -161,6 +171,7 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
         smag = torch.cat([smag, torch.full((nw, n_pad - n), D + 1, **i32)], dim=1)
         packed = torch.cat([packed, torch.full((nw, n_pad - n), n, **i32)], dim=1)
     packed_blk = packed.reshape(nw, nblk, K).permute(2, 0, 1)   # [K, nw, nblk]
+    mark("sort")
 
     def fused_gather_steps(acc, packed_steps, nsteps, lanes, lanes_pad):
         """packed_steps [nsteps, ...lanes]: K1 in groups of <= FUSE_STEPS."""
@@ -179,6 +190,7 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
     w1 = nw * nblk
     w1p = _pad_lanes(w1)
     block_sums = fused_gather_steps(_inf_lm(ops, w1p), packed_blk, K, w1, w1p)
+    mark("K1")
 
     # ---- phase 3 targets e_d = last sorted index with |digit| <= d
     dvals = torch.arange(0, D + 1, **i32)[None].expand(nw, D + 1).contiguous()
@@ -189,6 +201,7 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
     w_ids = torch.arange(nw, **i32)[:, None].expand(nw, D + 1)
     w2 = nw * (D + 1)
     w2p = _pad_lanes(w2)
+    mark("sort")
 
     def gather_rows_lm(bm_with_inf, lane, invalid):
         """Rows of a batch-major [R+1, 3, W] table (last row = identity) at
@@ -215,9 +228,11 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
                 (b_idx < sh)[None, None, :], inf_w1p, torch.roll(scan, sh, dims=2)
             )
             scan = jac_add(ops, scan, shifted.contiguous())
+        mark("K3")
         scan_bm = torch.cat([scan.permute(2, 0, 1), inf_row_bm])
         lane = w_ids * nblk + prev.clamp(0, nblk - 1)
         base_lm = gather_rows_lm(scan_bm, lane, prev < 0)
+        mark("gathers")
     else:
         # ---- phase 2, two levels.  2a: scan each super-block of S block
         # sums, emitting every step (K2)
@@ -228,8 +243,10 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
         qs = torch.nn.functional.pad(
             bs5.movedim(4, 0).reshape(S, 3, W, wsb), (0, wsbp - wsb)
         ).reshape(S * 3, W, wsbp).contiguous()
+        mark("gathers")
         is_scan = jac_add_multi_scan(ops, _inf_lm(ops, wsbp), qs)
         super_sums = is_scan[-3:]
+        mark("K2")
 
         # 2b: Kogge-Stone scan over the super sums per window
         sb_idx = torch.cat([
@@ -244,6 +261,7 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
                 torch.roll(super_scan, sh, dims=2),
             )
             super_scan = jac_add(ops, super_scan, shifted.contiguous())
+        mark("K3")
 
         # base = super_scan[esb_prev - 1] + is_scan[esb_prev][r2]
         esb_prev = torch.where(prev >= 0, torch.div(prev, S, rounding_mode="floor"), -1)
@@ -260,7 +278,9 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
         idx = torch.where(prev < 0, wsbp * S, lane_sb * S + r2).reshape(w2)
         idx = torch.cat([idx, torch.full((w2p - w2,), wsbp * S, **i32)])
         rescan = tbl[idx.long()].T.reshape(3, W, w2p).contiguous()
+        mark("gathers")
         base_lm = jac_add(ops, base_lm, rescan)
+        mark("K3")
 
     # ---- phase 3: in-block point rescan up to e_d, then P[e_d]
     blk_members = torch.gather(
@@ -271,7 +291,9 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
     j_all = torch.arange(K, **i32)[:, None, None]
     live_all = (j_all <= r[None]) & (e[None] >= 0)
     idx_all = torch.where(live_all, blk_members, n)
+    mark("gathers")
     in_block = fused_gather_steps(_inf_lm(ops, w2p), idx_all, K, w2, w2p)
+    mark("K1")
     p_e = jac_add(ops, base_lm, in_block)                     # [3, W, w2p]
 
     # ---- phase 4: S_w = D * P[e_D] - sum_{d<D} P[e_d].  Tree sum along d at
@@ -279,8 +301,10 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
     tree = p_e
     for i in range((D - 1).bit_length()):
         tree = jac_add(ops, tree, torch.roll(tree, -(D >> (i + 1)), dims=2))
+    mark("K3")
     tree = canon(ops, tree)
     p_e = canon(ops, p_e)
+    mark("K4")
     stride = D + 1
     prefix_sum = tree[:, :, 0 : nw * stride : stride].permute(2, 0, 1)  # [nw, 3, W]
     d_top = p_e[:, :, D : nw * stride : stride].permute(2, 0, 1)
@@ -289,7 +313,9 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
     neg_sum = torch.stack(
         [prefix_sum[:, 0], ops.f.neg(prefix_sum[:, 1]), prefix_sum[:, 2]], dim=1
     )
-    return ops.jac_add(d_top, neg_sum)              # [nw, 3, W]
+    out = ops.jac_add(d_top, neg_sum)               # [nw, 3, W]
+    mark("phase 4 plain")
+    return out
 
 
 # --------------------------------------------------------------- host MSM
@@ -374,13 +400,15 @@ class MsmCtx:
         return acc
 
     def msm_to_affine_int(self, points_affine, scalars, kind: str = "auto",
-                          window_bits: int | None = None):
+                          window_bits: int | None = None, mark=None):
         """MSM over G1 -> host affine int tuple (or None).
 
         points_affine: [N, 2, W] Montgomery affine words on the device.
         scalars, by ``kind``: 'ints' (canonical Python ints), 'mont'
         ([N, W] Montgomery words, the prover's path), 'digits' ([nw, N]
-        signed window digits) or 'auto'."""
+        signed window digits) or 'auto'.  ``mark`` is window_sums_scan's,
+        with 'digits' and 'host fold' besides."""
+        mark = mark or _no_mark
         n = points_affine.shape[0]
         if kind == "auto":
             if isinstance(scalars, (list, tuple)):
@@ -421,9 +449,12 @@ class MsmCtx:
             pts_pad = torch.cat(
                 [pts, torch.zeros((1, 2, self.ops.W), dtype=torch.int32, device=pts.device)]
             )
-            ws = window_sums_scan(self.ops, pts_pad, digs.contiguous(), c)
+            mark("digits")
+            ws = window_sums_scan(self.ops, pts_pad, digs.contiguous(), c, mark=mark)
             total = ws if total is None else self.ops.jac_add(total, ws)
-        return self._host_fold(total, c)
+        folded = self._host_fold(total, c)
+        mark("host fold")
+        return folded
 
 
 @functools.lru_cache(maxsize=None)

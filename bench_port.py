@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Times of one tree of the port, for comparing two trees on one card.
+
+    python3 bench_port.py [--root DIR] [--prove] [--reps N]
+
+``--root`` is the directory that holds the ``algoplonk_tpu_torch`` package
+to measure (default: this file's directory), so that a checkout of another
+commit unpacked elsewhere is timed by the same script in the same call: run
+it as parent, change, change, parent.  Each tree builds its kernels on first
+use and caches its test SRS under its own ``.cache/``.
+
+- K1 (``mixed_add_signed_multi``, 16 steps) and K2 (``jac_add_multi_scan``,
+  16 steps) on chip_smoke.py's inputs (``CommitInputs``) at the lane widths
+  of one commit: K1 on a table of the commit's size at the phase-1 and
+  phase-3 widths, K2 at the wrapper's threads per lane at the phase-2a
+  widths of BN254 2^16 and 2^17 and BLS12-381 2^14.  CUDA events over
+  ``--reps`` launches after one warm-up; the inputs come from fixed seeds,
+  so two trees see the same data.
+- With ``--prove``: chip_smoke.py's SquareChain at BN254 2^16 on the test
+  SRS and at BLS12-381 2^14 on the Ethereum KZG ceremony, compiled, then
+  proved and self-verified twice (``CompiledCircuit.verify``); host
+  seconds, with each prove's rounds and its MSMs' share.
+
+Prints the card's name and power limit, one JSON line per measurement, and
+a last JSON line with all of them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+import chip_smoke as cs   # this file's directory; it imports the port lazily
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--prove", action="store_true", help="also compile and prove")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_port: no CUDA device", file=sys.stderr)
+        return 2
+    import algoplonk_tpu_torch as apt
+    from algoplonk_tpu_torch.ops import _build
+    from algoplonk_tpu_torch.ops import curve_kernels as ck
+    from algoplonk_tpu_torch.ops import msm as M
+
+    if not os.path.abspath(apt.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"imported {apt.__file__}, not the package under {root}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"root {root}: kernel build {time.perf_counter() - t0:.1f} s", flush=True)
+    print(card, flush=True)
+    results = []
+
+    def record(name, **kw):
+        row = {"what": name, **kw}
+        results.append(row)
+        print(json.dumps(row), flush=True)
+
+    for curve, n, extra in ((apt.BN254, (1 << 16) + 3, ((1 << 17) + 3,)),
+                            (apt.BLS12_381, (1 << 14) + 3, ())):
+        s = cs.CommitInputs(torch, random.Random(curve.fp.nbits), curve, n)
+        ops, W = s.ops, s.ops.W
+        for phase, lanes in (("w1p", s.w1p), ("w2p", s.w2p)):
+            acc, _, _, packed = s.k1_inputs(lanes)
+            ms = cs.cuda_ms(lambda: ck.mixed_add_signed_multi(ops, acc, s.table, packed),
+                            args.reps)
+            record("mixed_add_signed_multi", W=W, lanes=lanes, table_rows=s.nrows,
+                   phase=phase, ms=ms)
+        for lanes in (s.wsbp, *(cs.commit_widths(m)[2] for m in extra)):
+            acc, qs = s.k2_inputs(lanes)
+            ms = cs.cuda_ms(lambda: ck.jac_add_multi_scan(ops, acc, qs), args.reps)
+            record("jac_add_multi_scan", W=W, lanes=lanes, steps=M.SUPER, ms=ms)
+
+    if args.prove:
+        for curve, setup, log_n in (
+                (apt.BN254, apt.SetupName.TEST_ONLY_BN254, cs.LOG_N),
+                (apt.BLS12_381, apt.SetupName.ETHEREUM_KZG_CEREMONY_BLS12_381, cs.BLS_LOG_N)):
+            r = curve.fr.modulus
+            x = 0xA1607 % r
+            SquareChain, chain = cs.square_chain(apt, log_n)
+            y = pow(x, 1 << chain, r)
+            t0 = time.perf_counter()
+            cc = apt.compile(SquareChain, curve, setup, device=torch.device("cuda"))
+            t_compile = time.perf_counter() - t0
+            for run in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with cs.msm_timer() as msm_t:
+                    vp = cc.verify(SquareChain(x=x, y=y))
+                record("prove", curve=curve.name, log_n=log_n, run=run,
+                       compile_s=t_compile, prove_verify_s=time.perf_counter() - t0,
+                       msm_s=msm_t.seconds, msm_calls=msm_t.calls,
+                       phases=vp.phase_seconds)
+            del cc, vp
+    print(json.dumps({"root": root, "card": card, "results": results}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,7 +11,12 @@ result line):
    version, word for word (tolerance: exact): K1-K4 and K5-K7 at W = 8 on random
    valid points at the lane widths a BN254 2^16 commit gives K1-K4 (c = 11,
    K = 16), and at W = 12 at the widths of a BLS12-381 2^14 commit, with
-   identity, doubling and cancelling lanes; K8 on 2^16 random residues of
+   identity, doubling and cancelling lanes; K1 gathers from a table of the
+   commit's own size (65,540 rows at W = 8, 16,388 at W = 12) and is timed
+   at the phase-1 and phase-3 widths; K2 is held to its plain version at
+   every thread count per lane T and timed at every T at the phase-2a
+   widths of the three commits (6,272 and 12,416 lanes at W = 8, 1,664 at
+   W = 12); K8 on 2^16 random residues of
    each of the four fields; and the NTT stage kernel K9 on random residues
    at the four pass shapes of the 2^17 path's four-step transforms of 2^19
    (C = 512 and 1024, forward and inverse, with and without the fused entry
@@ -23,6 +28,8 @@ result line):
    must be rejected, and K1-K4 must have launched;
 3. one commit-sized MSM (65,539 points of that SRS): the kernel path must
    equal the plain path, and on a 4,096-point prefix the host Pippenger;
+   then its split (sort, gathers, K1-K4, phase-4 plain ops, host fold) from
+   synchronised marks;
 4. a small circuit proved on the GPU (device MSM forced) must give the same
    proof bytes as on the CPU through both quotient paths, and a BSB22
    circuit must prove and verify;
@@ -42,7 +49,8 @@ result line):
    both quotient paths (the four-step one runs K9 on BLS12-381's Fr), and
    an MSM over all 32,768 ceremony points agrees between the kernel path
    at fuse depths 16 and 8 and the plain path, and on a 4,096-point prefix
-   (c = 11) with the host Pippenger;
+   (c = 11) with the host Pippenger; then the split of one 16,387-point
+   commit MSM;
 7. the kernel-test path of K5-K8 (the counterpart of the reference's
    tests/test_pallas_kernels.py), with the counts zeroed just before it:
    on each curve, K5, K6 and K7 on identity, doubling and cancelling lanes
@@ -54,7 +62,8 @@ limit, then a JSON line of per-kernel numbers: launches from the path that
 runs the kernel (K1-K4 at W = 8 and K9 from the 2^17 path, K1-K4 at W = 12
 from the BLS12-381 path, K5-K8 from the kernel-test path), the time of
 kernel and plain version at phase 1's shapes (K9's ms and plain_ms are the
-sums over its four pass shapes, itemised under "passes"), and the bound at
+sums over its four pass shapes, itemised under "passes"; K1's and K2's other
+shapes are itemised under "shapes"), and the bound at
 those shapes: the larger of the bytes over HBM bandwidth and the 32-bit
 integer multiplies over the card's multiply rate.  No single PyTorch call
 computes any of these functions, so library_ms is null.  The last line is
@@ -63,6 +72,7 @@ computes any of these functions, so library_ms is null.  The last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -95,9 +105,12 @@ REPLACES = {
     "field_mul": "algoplonk_tpu/ops/curve_pallas.py:447",
     "ntt_pass": "algoplonk_tpu/ops/ntt_pallas.py:129",
 }
-# Montgomery multiplies per lane of one call of each formula (curve.cuh)
-MIXED_ADD_MULS = 13
-JAC_ADD_MULS = 14
+# Montgomery multiplies per lane of one call of each formula, as the kernels
+# do them (csrc/curve.cuh): the two products by 3b that the plain version
+# (ops/curve.py) makes as multiplies are a few additions there, and are not
+# counted
+MIXED_ADD_MULS = 11
+JAC_ADD_MULS = 12
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 IMUL_PER_CLK_PER_SM = 64    # 32-bit integer multiply-adds, compute capability 9.0
 
@@ -213,37 +226,91 @@ def commit_widths(n: int):
             M._pad_lanes(nw * (nblk // M.SUPER)))
 
 
-def kernel_phase(torch, rng, curve, n_commit, bound, suffix):
-    """K1-K7 on ``curve`` against their plain versions at the lane widths of
-    one commit of n_commit points; names carry ``suffix``."""
-    from algoplonk_tpu_torch.host import fp as hfp
-    from algoplonk_tpu_torch.ops import curve_kernels as ck
-    from algoplonk_tpu_torch.ops import msm as M
-    from algoplonk_tpu_torch.ops.curve import curve_ops
+class CommitInputs:
+    """Random inputs of the MSM kernels at the lane widths of one commit of
+    n_commit points on ``curve`` (commit_widths): a table of the commit's
+    own size (n_commit + 1 rows drawn from 256 random points, the identity
+    row last), projective points and K1's packed steps over it."""
 
-    dev = torch.device("cuda")
-    ops = curve_ops(curve, dev)
-    W = ops.W
-    g = torch.Generator(device="cpu").manual_seed(1 + W)
-    w1p, w2p, wsbp = commit_widths(n_commit)
-    log(f"[{curve.name}] kernel widths at W = {W}: w1p={w1p} w2p={w2p} wsbp={wsbp}")
+    def __init__(self, torch, rng, curve, n_commit):
+        from algoplonk_tpu_torch.host import fp as hfp
+        from algoplonk_tpu_torch.ops.curve import curve_ops
 
-    F = hfp.GF(curve.fp.modulus)
-    base = [hfp.ec_mul(F, curve.g1, rng.randrange(1, curve.fr.modulus)) for _ in range(256)]
-    table = ops.encode_affine(base)                                  # [256, 2, W]
-    pts_flat = torch.cat([table, torch.zeros(1, 2, W, dtype=torch.int32, device=dev)])
-    pts_flat = pts_flat.reshape(-1, 2 * W).contiguous()
+        self.torch, self.dev = torch, torch.device("cuda")
+        self.ops = ops = curve_ops(curve, self.dev)
+        W = ops.W
+        self.g = torch.Generator(device="cpu").manual_seed(1 + W)
+        self.w1p, self.w2p, self.wsbp = commit_widths(n_commit)
+        F = hfp.GF(curve.fp.modulus)
+        base = [hfp.ec_mul(F, curve.g1, rng.randrange(1, curve.fr.modulus)) for _ in range(256)]
+        self.nrows = n_commit + 1
+        pick = torch.randint(0, 256, (self.nrows,), generator=self.g).to(self.dev)
+        self.table = ops.encode_affine(base)[pick].reshape(self.nrows, 2 * W).contiguous()
+        self.table[-1] = 0
 
-    def rand_proj(lanes):
+    def rand_proj(self, lanes):
         """Random projective points: (doubled, so Z != 1; table rows;
-        undoubled).  Row 256 is the identity."""
-        idx = torch.randint(0, 257, (lanes,), generator=g).to(dev)
-        p = ops.affine_to_jac(pts_flat[idx].reshape(lanes, 2, W))
+        undoubled).  The first 8 lanes are the identity."""
+        ops = self.ops
+        idx = self.torch.randint(0, self.nrows, (lanes,), generator=self.g).to(self.dev)
+        idx[:8] = self.nrows - 1
+        p = ops.affine_to_jac(self.table[idx].reshape(lanes, 2, ops.W))
         return ops.jac_double(p).permute(1, 2, 0).contiguous(), idx, p.permute(1, 2, 0)
 
+    def k1_inputs(self, lanes):
+        """FUSE_STEPS signed gather-adds over random rows of the table; lanes
+        0-63 add their own point (doubling), lanes 64-127 its negation
+        (result: identity).  Returns (acc, rows, sign, packed)."""
+        from algoplonk_tpu_torch.ops import curve_kernels as ck
+        from algoplonk_tpu_torch.ops import msm as M
+
+        torch, g = self.torch, self.g
+        acc, acc_idx, acc_plain = self.rand_proj(lanes)
+        acc[:, :, :128] = acc_plain[:, :, :128]
+        rows = torch.randint(0, self.nrows, (M.FUSE_STEPS, lanes), generator=g).to(self.dev)
+        sign = torch.randint(0, 2, (M.FUSE_STEPS, lanes), generator=g).to(self.dev)
+        rows[0, :128] = acc_idx[:128]
+        sign[0, :64] = 0
+        sign[0, 64:128] = 1
+        return acc, rows, sign, (rows | (sign << ck.SIGN_SHIFT)).to(torch.int32).contiguous()
+
+    def k2_inputs(self, lanes):
+        """K2's acc [3, W, lanes] and SUPER steps qs [3 SUPER, W, lanes]."""
+        from algoplonk_tpu_torch.ops import msm as M
+
+        qs = self.torch.cat([self.rand_proj(lanes)[0] for _ in range(M.SUPER)]).contiguous()
+        return self.rand_proj(lanes)[0], qs
+
+
+@contextlib.contextmanager
+def forced_threads(T: int):
+    """K2 runs T threads per lane inside the block, whatever the shape."""
+    from algoplonk_tpu_torch.ops import curve_kernels as ck
+
+    saved = ck.scan_threads
+    ck.scan_threads = lambda B, g: T
+    try:
+        yield
+    finally:
+        ck.scan_threads = saved
+
+
+def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=()):
+    """K1-K7 on ``curve`` against their plain versions at the lane widths of
+    one commit of n_commit points; names carry ``suffix``.  K1 gathers from
+    a table of the commit's own size (n_commit + 1 rows) and is timed at
+    the phase-1 and phase-3 widths; K2 is checked at every T it takes and
+    timed at every T at the commit's phase-2a width and at ``k2_lanes``."""
+    from algoplonk_tpu_torch.ops import curve_kernels as ck
+    from algoplonk_tpu_torch.ops import msm as M
+
+    s = CommitInputs(torch, rng, curve, n_commit)
+    ops, W, pts_flat, nrows = s.ops, s.ops.W, s.table, s.nrows
+    w1p, w2p, wsbp = s.w1p, s.w2p, s.wsbp
+    log(f"[{curve.name}] kernel widths at W = {W}: w1p={w1p} w2p={w2p} wsbp={wsbp}")
     results = []
 
-    def check(name, kern, plain, reps, montmuls, moved):
+    def check(name, kern, plain, reps, montmuls, moved, **extra):
         out_k = kern()
         torch.cuda.synchronize()
         out_p = plain()
@@ -259,24 +326,22 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix):
         results.append({"name": name + suffix, "route": "cuda", "source": SOURCE[name],
                         "replaces": REPLACES[name], "kernel": name, "width": W,
                         "max_abs_err": diff, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                        **extra})
 
-    # K1 at phase-1 width: FUSE_STEPS signed gather-adds over random rows and
-    # the identity row; lanes 0-63 add their own point (doubling), lanes
-    # 64-127 its negation (result: identity)
-    acc, acc_idx, acc_plain = rand_proj(w1p)
-    acc[:, :, :128] = acc_plain[:, :, :128]
-    steps = M.FUSE_STEPS
-    rows = torch.randint(0, 257, (steps, w1p), generator=g).to(dev)
-    sign = torch.randint(0, 2, (steps, w1p), generator=g).to(dev)
-    rows[0, :128] = acc_idx[:128]
-    sign[0, :64] = 0
-    sign[0, 64:128] = 1
-    packed = (rows | (sign << ck.SIGN_SHIFT)).to(torch.int32).contiguous()
+    # K1 at the phase-3 width first (timed only), then at the phase-1 width
+    acc, _, _, packed = s.k1_inputs(w2p)
+    k1_w2p = cuda_ms(lambda: ck.mixed_add_signed_multi(ops, acc, pts_flat, packed), 20)
+    acc, rows, sign, packed = s.k1_inputs(w1p)
     check("mixed_add_signed_multi",
           lambda: ck.mixed_add_signed_multi(ops, acc, pts_flat, packed),
           lambda: ck.plain_mixed_add_signed_multi(ops, acc, pts_flat, packed), 20,
-          steps * w1p * MIXED_ADD_MULS, nbytes(acc, pts_flat, packed))
+          M.FUSE_STEPS * w1p * MIXED_ADD_MULS, nbytes(acc, pts_flat, packed),
+          shapes=[{"lanes": w1p, "table_rows": nrows}, {"lanes": w2p, "table_rows": nrows,
+                                                        "ms": k1_w2p}])
+    results[-1]["shapes"][0]["ms"] = results[-1]["ms"]
+    log(f"mixed_add_signed_multi{suffix} on the {nrows}-row table: w1p={w1p} "
+        f"{results[-1]['ms']:.4f} ms, w2p={w2p} {k1_w2p:.4f} ms")
     # K5 and K6 at the same width: one step, the gathered point given
     aff = pts_flat[rows[0]].reshape(w1p, 2, W).permute(1, 2, 0).contiguous()
     neg = sign[:1].to(torch.int32).contiguous()
@@ -286,27 +351,48 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix):
     check("mixed_add_signed", lambda: ck.mixed_add_signed(ops, acc, aff, neg),
           lambda: ck.plain_mixed_add_signed(ops, acc, aff, neg), 20,
           w1p * MIXED_ADD_MULS, nbytes(acc, aff, neg))
-    # K2 and K7 at phase-2a width
-    acc2 = rand_proj(wsbp)[0]
-    qs = torch.cat([rand_proj(wsbp)[0] for _ in range(M.SUPER)]).contiguous()
+    # K2 at every T (exact against the plain scan in the same association),
+    # then timed at every T at each phase-2a width, and checked at the
+    # wrapper's T; K7 at the commit's width
+    acc2, qs = s.k2_inputs(wsbp)
+    for T in ck.SCAN_THREADS:
+        with forced_threads(T):
+            out_k = ck.jac_add_multi_scan(ops, acc2, qs)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, ck.plain_jac_add_multi_scan(ops, acc2, qs, T)):
+            raise AssertionError(f"jac_add_multi_scan{suffix} at T = {T} disagrees with its "
+                                 "plain version")
+    log(f"jac_add_multi_scan{suffix}: exact at every T in {ck.SCAN_THREADS}")
+    shapes = []
+    for lanes in (wsbp, *k2_lanes):
+        a_x, q_x = (acc2, qs) if lanes == wsbp else s.k2_inputs(lanes)
+        picked = ck.scan_threads(lanes, M.SUPER)
+        for T in ck.SCAN_THREADS:
+            with forced_threads(T):
+                ms = cuda_ms(lambda: ck.jac_add_multi_scan(ops, a_x, q_x), 20)
+            shapes.append({"lanes": lanes, "T": T, "picked": T == picked, "ms": ms})
     check("jac_add_multi_scan",
           lambda: ck.jac_add_multi_scan(ops, acc2, qs),
           lambda: ck.plain_jac_add_multi_scan(ops, acc2, qs), 20,
-          M.SUPER * wsbp * JAC_ADD_MULS, nbytes(acc2, qs))
+          M.SUPER * wsbp * JAC_ADD_MULS, nbytes(acc2, qs), T=ck.scan_threads(wsbp, M.SUPER))
+    results[-1]["shapes"] = shapes
+    log(f"jac_add_multi_scan{suffix} by lanes and T (* the wrapper's): "
+        + ", ".join(f"{x['lanes']} lanes T={x['T']}{'*' if x['picked'] else ''} "
+                    f"{x['ms']:.4f} ms" for x in shapes))
     check("jac_add_multi",
           lambda: ck.jac_add_multi(ops, acc2, qs),
           lambda: ck.plain_jac_add_multi(ops, acc2, qs), 20,
           M.SUPER * wsbp * JAC_ADD_MULS, nbytes(acc2, qs))
     # K3 at phase-3/4 width, with p + p and p + (-p) lanes
-    p3 = rand_proj(w2p)[0]
-    q3 = rand_proj(w2p)[0]
+    p3 = s.rand_proj(w2p)[0]
+    q3 = s.rand_proj(w2p)[0]
     q3[:, :, :128] = p3[:, :, :128]
     q3[1, :, 64:128] = ops.f.neg(p3[1, :, 64:128].T).T
     check("jac_add", lambda: ck.jac_add(ops, p3, q3),
           lambda: ck.plain_jac_add(ops, p3, q3), 50, w2p * JAC_ADD_MULS, nbytes(p3, q3))
     # K4 on arbitrary W-word values
-    x4 = torch.randint(-2**31, 2**31, (3, W, w2p), generator=g, dtype=torch.int64)
-    x4 = x4.to(torch.int32).to(dev).contiguous()
+    x4 = torch.randint(-2**31, 2**31, (3, W, w2p), generator=s.g, dtype=torch.int64)
+    x4 = x4.to(torch.int32).to(s.dev).contiguous()
     check("canon", lambda: ck.canon(ops, x4), lambda: ck.plain_canon(ops, x4), 50,
           3 * w2p, nbytes(x4))
     return results
@@ -489,6 +575,36 @@ class plain_kernels:
             setattr(M, k, v)
 
 
+class Split:
+    """Synchronised marks for MsmCtx.msm_to_affine_int's ``mark``: the host
+    seconds of each part of one MSM, by the part's name."""
+
+    def __init__(self, torch):
+        self.torch, self.parts = torch, {}
+        torch.cuda.synchronize()
+        self.t0 = self.last = time.perf_counter()
+
+    def __call__(self, name):
+        self.torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.parts[name] = self.parts.get(name, 0.0) + now - self.last
+        self.last = now
+
+    def report(self, tag):
+        total = self.last - self.t0
+        log(f"{tag} MSM split (s, synchronised marks): total {total:.4f}; "
+            + json.dumps({k: round(v, 5) for k, v in self.parts.items()}))
+
+
+def msm_split(torch, ctx, pts, mont, want, tag):
+    """One marked MSM (warm): its split, and its result against ``want``."""
+    split = Split(torch)
+    got = ctx.msm_to_affine_int(pts, mont, kind="mont", mark=split)
+    split.report(tag)
+    if got != want:
+        raise AssertionError(f"{tag} marked MSM disagrees")
+
+
 class msm_timer:
     """Host seconds spent in MsmCtx.msm_to_affine_int.  Each call starts
     after a synchronise and ends in a host fold that waits for the device,
@@ -568,7 +684,8 @@ def main() -> int:
     _build.library()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     log(_build.build_log.strip())
-    kernels = kernel_phase(torch, rng, apt.BN254, (1 << LOG_N) + 3, bound, "")
+    kernels = kernel_phase(torch, rng, apt.BN254, (1 << LOG_N) + 3, bound, "",
+                           k2_lanes=(commit_widths((1 << LM_LOG_N) + 3)[2],))
     kernels += kernel_phase(torch, rng, apt.BLS12_381, (1 << BLS_LOG_N) + 3, bound, "[w12]")
     kernels += field_mul_phase(torch, apt, bound)
     kernels.append(ntt_kernel_phase(torch, bound))
@@ -646,6 +763,7 @@ def main() -> int:
         f"{got == plain}; {HOST_PREFIX}-point prefix: host {t_host:.1f} s, equal: {pre == host}")
     if not (got == plain and pre == host):
         raise AssertionError("commit-sized MSM disagrees")
+    msm_split(torch, ctx, pts, mont, got, f"[bn254] {n}-point commit")
 
     def gpu_equals_cpu(curve, setup, P, assignment, public):
         """Prove ``P`` with every commit on the device MSM, on the GPU and
@@ -764,6 +882,10 @@ def main() -> int:
         f"{pre == host}")
     if not (same and pre == host):
         raise AssertionError("the BLS12-381 ceremony MSM disagrees")
+    n_commit = (1 << BLS_LOG_N) + 3
+    want = ctx.msm_to_affine_int(pts[:n_commit], mont[:n_commit], kind="mont")
+    msm_split(torch, ctx, pts[:n_commit], mont[:n_commit], want,
+              f"[bls12_381] {n_commit}-point commit")
 
     # ---- phase 7: the kernel-test path of K5-K8
     off_path = {}
@@ -788,7 +910,7 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on their path: {unlaunched}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "passes")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "passes", "shapes")
     line = [{key: k[key] for key in keys if key in k} for k in kernels]
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -1,6 +1,7 @@
 """The CUDA kernels on the GPU, word for word against their plain PyTorch
 versions: the four MSM kernels K1-K4 (csrc/msm_kernels.cu) at W = 8 (BN254)
-and W = 12 (BLS12-381), K5-K8 (csrc/curve_kernels.cu) on both curves and
+and W = 12 (BLS12-381), K1 on a commit-sized table and K2 at every thread
+count per lane, K5-K8 (csrc/curve_kernels.cu) on both curves and
 every field, and the NTT stage kernel K9 (csrc/ntt_kernels.cu); then the
 device MSM, the four-step transform and small proofs against host arithmetic
 and the CPU.
@@ -141,6 +142,47 @@ def test_msm_kernels_at_w12(bls_setup, kernel):
         x = torch.randint(-(2**31), 2**31, (3, ops.W, LANES), generator=gen, dtype=torch.int64)
         x = x.to(torch.int32).to(ops.device).contiguous()
         run_and_compare("canon", lambda: ck.canon(ops, x), lambda: ck.plain_canon(ops, x))
+
+
+@pytest.mark.parametrize("T", ck.SCAN_THREADS)
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_k2_every_thread_count(monkeypatch, cuda_device, curve, T):
+    """K2 with T threads per lane equals its plain version in the same
+    association, word for word, at both widths; lanes not a multiple of
+    the block."""
+    monkeypatch.setattr(ck, "scan_threads", lambda B, g: T)
+    c = apt.fields.params.CURVES[curve]
+    ops = curve_ops(c, cuda_device)
+    table = ops.encode_affine(sample_points(random.Random(11), c, 31) + [None])
+    gen = torch.Generator().manual_seed(12 + T)
+    acc = random_projective(ops, gen, table, LANES)
+    qs = torch.cat([random_projective(ops, gen, table, LANES) for _ in range(M.SUPER)])
+    qs[3:6, :, :64] = acc[:, :, :64]                          # doublings at step 1
+    run_and_compare("jac_add_multi_scan", lambda: ck.jac_add_multi_scan(ops, acc, qs),
+                    lambda: ck.plain_jac_add_multi_scan(ops, acc, qs, T))
+
+
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_k1_commit_sized_table(cuda_device, curve):
+    """K1 gathering from a table of a commit's size (2^16 + 4 rows at W = 8,
+    2^14 + 4 at W = 12), random rows, both signs, the identity row last."""
+    c = apt.fields.params.CURVES[curve]
+    ops = curve_ops(c, cuda_device)
+    gen = torch.Generator().manual_seed(13)
+    base = ops.encode_affine(sample_points(random.Random(13), c, 63) + [None])
+    nrows = (1 << 16 if ops.W == 8 else 1 << 14) + 4
+    pick = torch.randint(0, base.shape[0], (nrows,), generator=gen).to(cuda_device)
+    pick[-1] = base.shape[0] - 1
+    flat = base[pick].reshape(nrows, 2 * ops.W).contiguous()
+    acc = random_projective(ops, gen, base, 4 * LANES)
+    rows = torch.randint(0, nrows, (M.FUSE_STEPS, 4 * LANES), generator=gen)
+    sign = torch.randint(0, 2, (M.FUSE_STEPS, 4 * LANES), generator=gen)
+    packed = (rows | (sign << ck.SIGN_SHIFT)).to(torch.int32).to(cuda_device)
+    run_and_compare(
+        "mixed_add_signed_multi",
+        lambda: ck.mixed_add_signed_multi(ops, acc, flat, packed),
+        lambda: ck.plain_mixed_add_signed_multi(ops, acc, flat, packed),
+    )
 
 
 @pytest.mark.parametrize("curve", ["bn254", "bls12_381"])

@@ -135,12 +135,16 @@ def test_k1_mixed_add_signed_multi_matches_pallas(ops):
 
 
 def test_k2_jac_add_multi_scan_matches_pallas(ops):
+    """With one thread per lane (T = 1, what the wrapper picks for two
+    steps) the scan is the reference's sequential one, coordinate for
+    coordinate (tests/test_torch_scan_threads.py takes the other T)."""
     P, Q = operand_points(13)
     rng = random.Random(13)
     acc = proj_lm(ops, P)
     q2 = sample_points(rng, BN254, B)
     q2[0] = None
     qs = torch.cat([proj_lm(ops, Q), proj_lm(ops, q2)])       # [3g, W, B]
+    assert ck.scan_threads(B, STEPS) == 1
     got = ck.jac_add_multi_scan(ops, acc, qs)
     assert got.shape == qs.shape
     want = cp.pallas_jac_add_multi_scan(JBN254, 8, STEPS)(to_jax(acc), to_jax(qs))

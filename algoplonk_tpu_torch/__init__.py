@@ -25,7 +25,7 @@ built with nvcc at first use and launched.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -48,6 +48,7 @@ from .plonk import marshal as marshal_mod
 from .plonk import verify as verify_mod
 from .plonk.keys import ProvingKey, VerifyingKey
 from .plonk.prove import Proof, Prover
+from .setups.registry import test_only_setup
 from .setups.srs import SetupName, get as get_setup, run_setup
 
 __all__ = [
@@ -60,6 +61,7 @@ __all__ = [
     "CompiledCircuit",
     "VerifiedProof",
     "compile",
+    "test_only_setup",
     "set_gnark_compat",
     "gnark_compat_enabled",
 ]
@@ -87,12 +89,13 @@ class CompiledCircuit:
 
 @dataclass
 class VerifiedProof:
-    """A proof plus its witness; ``phase_seconds`` times the prove rounds."""
+    """A proof plus its witness; ``phase_seconds`` times the prove rounds
+    (empty where the proof was not made by ``CompiledCircuit.verify``)."""
 
     proof: Proof
     witness: witness_mod.Witness
     curve: CurveParams
-    phase_seconds: dict
+    phase_seconds: dict = field(default_factory=dict)
 
     def marshal_proof(self) -> bytes:
         return marshal_mod.marshal_proof(self.curve, self.proof)

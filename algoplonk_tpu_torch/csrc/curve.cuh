@@ -1,9 +1,10 @@
-// Complete RCB point additions on short Weierstrass curves with a = 0,
-// per lane, in registers.
+// Complete RCB point additions and doubling on short Weierstrass curves
+// with a = 0, per lane, in registers.
 //
 // Device-function counterparts of algoplonk_tpu/ops/curve_pallas.py
 // _mixed_add_body and _jac_add_body (and of ops/curve.py jac_add_affine /
-// jac_add, whose operation sequence they follow exactly).  They run on the
+// jac_add / jac_double, whose operation sequence they follow exactly; the
+// doubling runs in the MSM's phase 4, msm_kernels.cu).  They run on the
 // lazy field core (field.cuh: values in [0, 2p), valid for 4p < R, which
 // BN254's and BLS12-381's base fields meet), so each intermediate is the
 // plain version's field element, not always its canonical word.  A kernel
@@ -11,13 +12,13 @@
 // store_proj), and the stored words then equal the plain version's.
 //
 // The plain version multiplies by 3b in Montgomery form; here 3b is the
-// small integer k3b of CurveConsts (9 on BN254, 12 on BLS12-381), and the
-// two products by it are four lazy additions each.
+// small integer k3b of CurveConsts (9 on BN254, 12 on BLS12-381), and each
+// product by it is four lazy additions.
 //
-// What bounds them on the H100: a mixed add is 11 Montgomery multiplies and a
-// projective add 12 (field.cuh: 272 multiply instructions each at W = 8, 600
-// at W = 12), on about 100 (W = 8) or 150 (W = 12) words of live state per
-// lane.  The formulas therefore run in registers with no shared memory;
+// What bounds them on the H100: a mixed add is 11 Montgomery multiplies, a
+// doubling 8 and a projective add 12 (field.cuh: 272 multiply instructions
+// each at W = 8, 600 at W = 12), on about 100 (W = 8) or 150 (W = 12) words
+// of live state per lane.  The formulas therefore run in registers with no shared memory;
 // ptxas's report (printed by chip_smoke.py) gives each kernel's registers.
 
 #pragma once
@@ -125,6 +126,38 @@ __device__ __forceinline__ void jac_add(Proj<W>& out, const Proj<W>& a,
   mont_mul_lazy<W>(u, z3, t4, c);
   mont_mul_lazy<W>(v, t0, t3, c);
   add_lazy<W>(z3, u, v, p2);
+  copy<W>(out.x, x3);
+  copy<W>(out.y, y3);
+  copy<W>(out.z, z3);
+}
+
+// out <- 2 a   (complete projective doubling, dbl-2015-rcb: 8 multiplies;
+// lazy in and out; out may alias a).  The sequence of ops/curve.py
+// jac_double, so the stored words equal the plain version's.
+template <int W>
+__device__ __forceinline__ void jac_double(Proj<W>& out, const Proj<W>& a,
+                                           const CurveConsts<W>& cc) {
+  const FieldConsts<W>& c = cc.f;
+  const uint32_t* p2 = cc.p2;
+  uint32_t t0[W], t1[W], t2[W], x3[W], y3[W], z3[W];
+  mont_mul_lazy<W>(t0, a.y, a.y, c);
+  add_lazy<W>(z3, t0, t0, p2);
+  add_lazy<W>(z3, z3, z3, p2);
+  add_lazy<W>(z3, z3, z3, p2);          // 8 Y^2
+  mont_mul_lazy<W>(t1, a.y, a.z, c);
+  mont_mul_lazy<W>(t2, a.z, a.z, c);
+  mul_small_lazy<W>(t2, t2, cc.k3b, p2);      // b3 Z^2
+  mont_mul_lazy<W>(x3, t2, z3, c);
+  add_lazy<W>(y3, t0, t2, p2);
+  mont_mul_lazy<W>(z3, t1, z3, c);
+  add_lazy<W>(t1, t2, t2, p2);
+  add_lazy<W>(t2, t1, t2, p2);
+  sub_lazy<W>(t0, t0, t2, p2);
+  mont_mul_lazy<W>(y3, t0, y3, c);
+  add_lazy<W>(y3, x3, y3, p2);
+  mont_mul_lazy<W>(t1, a.x, a.y, c);
+  mont_mul_lazy<W>(x3, t0, t1, c);
+  add_lazy<W>(x3, x3, x3, p2);
   copy<W>(out.x, x3);
   copy<W>(out.y, y3);
   copy<W>(out.z, z3);

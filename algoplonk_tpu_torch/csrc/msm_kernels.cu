@@ -4,8 +4,10 @@
 // They replace these Pallas TPU kernels of algoplonk_tpu/ops/curve_pallas.py:
 //   K1 pallas_mixed_add_signed_multi (:250) -> ap_mixed_add_signed_multi
 //   K2 pallas_jac_add_multi_scan     (:357) -> ap_jac_add_multi_scan
-//   K3 pallas_jac_add                (:292) -> ap_jac_add
-//   K4 pallas_canon                  (:404) -> ap_canon
+//   K3 pallas_jac_add                (:292) -> ap_jac_add, and the chains of
+//      it that the MSM runs: ap_jac_add_window_scan, ap_window_combine
+//   K4 pallas_canon                  (:404) -> ap_canon (off the MSM's path:
+//      every curve kernel here stores canonical words)
 //
 // Layout, as on the TPU: limbs-major [coord, W, B] int32 words, lane b of
 // word w of coordinate k at (k * W + w) * B + b.  One thread owns one lane, so
@@ -39,6 +41,15 @@
 //   the re-association is safe; the outputs equal the sequential scan's as
 //   points, and word for word the plain version's, which follows the same
 //   association (ops/curve_kernels.py plain_jac_add_multi_scan).
+// - K3's chains: on the TPU every round of a window's Kogge-Stone scan
+//   (algoplonk_tpu/ops/msm.py phase 2) and of phase 4's tree is one launch
+//   of the single add, rolled and masked in HBM, and phase 4's doublings
+//   and final add run in XLA.  Here one block owns one window, holds its
+//   points in shared memory (limbs-major [coord][W][lane], so a warp's
+//   accesses fall in distinct banks) and runs the whole chain with a
+//   barrier between rounds.  Few windows (24 at a commit) leave most SMs
+//   idle; the kernels are bound by the chain's depth of dependent adds,
+//   not by the card's multiply rate.
 // ptxas fits every kernel without spills (chip_smoke.py prints its report).
 //
 // Every kernel is a template on W.  The file is compiled once for W = 8
@@ -264,6 +275,187 @@ jac_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
   store_proj<W>(out, a, B, b, cc.f.p);
 }
 
+// Point i of n in a limbs-major shared array [3][W][n], lazy words as they
+// are (no canonical form until the final store).
+template <int W>
+__device__ __forceinline__ void load_smem(ap::Proj<W>& q, const uint32_t* s,
+                                          int n, int i) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    q.x[w] = s[(0 * W + w) * n + i];
+    q.y[w] = s[(1 * W + w) * n + i];
+    q.z[w] = s[(2 * W + w) * n + i];
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_smem(uint32_t* s, int n, int i,
+                                           const ap::Proj<W>& q) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    s[(0 * W + w) * n + i] = q.x[w];
+    s[(1 * W + w) * n + i] = q.y[w];
+    s[(2 * W + w) * n + i] = q.z[w];
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void set_identity(ap::Proj<W>& q,
+                                             const ap::CurveConsts<W>& cc) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    q.x[w] = 0;
+    q.y[w] = cc.f.one[w];
+    q.z[w] = 0;
+  }
+}
+
+// K3 scan's block size: the most threads whose registers an SM holds (one
+// add each per wave); a window of more lanes runs in waves.
+#if AP_W == 8
+constexpr int kScanThreads = 512;
+#else
+constexpr int kScanThreads = 256;
+#endif
+constexpr int kMaxWindow = 1024;   // CHUNK / K_BLOCK / SUPER (ops/msm.py)
+
+// K3 scan: x [3, W, B] holds nwin = gridDim.x windows of E lanes (lane
+// w * E + i); out [3, W, nwin * E] is each window's inclusive scan, in the
+// association of the rolled loop it replaces (ops/curve_kernels.py
+// plain_jac_add_window_scan): rounds sh = 1, 2, 4, ... < E, and in each
+// y[i] <- y[i] + y[i - sh] for i >= sh, y[i] <- y[i] + identity for i < sh
+// (which scales the point, so it is kept for the words' sake).  Block w
+// holds window w in shared memory.  A round runs in waves of blockDim.x
+// lanes from the top down: every thread of a wave reads its two operands
+// and adds before the barrier and writes after it, and a wave reads only
+// lanes below the ones the waves before it wrote, so one buffer serves.
+template <int W>
+__global__ void __launch_bounds__(kScanThreads)
+jac_add_window_scan_kernel(const uint32_t* __restrict__ x,
+                           uint32_t* __restrict__ out, int64_t B, int E,
+                           ap::CurveConsts<W> cc) {
+  extern __shared__ uint32_t y[];   // [3][W][E]
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int64_t lane0 = (int64_t)blockIdx.x * E;
+  const int64_t live = (int64_t)gridDim.x * E;
+  for (int i = tid; i < E; i += nt) {
+    ap::Proj<W> q;
+    load_proj<W>(q, x, B, lane0 + i);
+    store_smem<W>(y, E, i, q);
+  }
+  __syncthreads();
+  for (int sh = 1; sh < E; sh <<= 1) {
+    for (int hi = E; hi > 0; hi -= nt) {
+      const int i = hi - nt + tid;
+      ap::Proj<W> a, b;
+      if (i >= 0) {
+        load_smem<W>(a, y, E, i);
+        if (i >= sh)
+          load_smem<W>(b, y, E, i - sh);
+        else
+          set_identity<W>(b, cc);
+        ap::jac_add<W>(a, a, b, cc);
+      }
+      __syncthreads();
+      if (i >= 0) store_smem<W>(y, E, i, a);
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < E; i += nt) {
+    ap::Proj<W> q;
+    load_smem<W>(q, y, E, i);
+    store_proj<W>(out, q, live, lane0 + i, cc.f.p);
+  }
+}
+
+// K3 phase 4's tree threads; one more warp runs the doubling chain.  An SM
+// splits its registers over four quarters and a block's warps over those,
+// so 9 warps cap a thread at 168 registers, which spills the W = 12 add;
+// 8 warps allow 255.
+#if AP_W == 8
+constexpr int kTreeThreads = 256;
+#else
+constexpr int kTreeThreads = 224;
+#endif
+
+__device__ __forceinline__ void tree_sync() {
+  asm volatile("bar.sync 1, %0;" ::"r"(kTreeThreads) : "memory");
+}
+
+// K3 phase 4: base, in_block [3, W, B] hold nw = gridDim.x windows of D + 1
+// lanes (lane w * (D + 1) + d, D = 2^(c-1)); out [nw, 3, W] (batch-major,
+// canonical) is S_w = D P[e_D] - sum_{d<D} P[e_d] with P[e_d] = base +
+// in_block, as ops/curve_kernels.py plain_window_combine computes it a round
+// at a time.  Block w: the tree threads sum P[e_d], d < D, by the rolled
+// tree's pairing, restricted to the lanes that reach lane 0 (round h = D/2,
+// ..., 1: y[j] <- y[j] + y[j + h] for j < h).  The first round is fused with
+// the P[e_d] adds, so shared memory holds only the D/2 lanes that survive
+// it (c = 12 fits at W = 12); the later rounds run in place, since y[j + h]
+// is not written in the round that reads it.  Meanwhile thread
+// kTreeThreads, in a warp of its own, adds P[e_D] and doubles it c - 1
+// times in registers.  After one barrier it adds the negated sum.  The
+// critical path is c + 2 dependent point operations.
+template <int W>
+__global__ void __launch_bounds__(kTreeThreads + 32)
+window_combine_kernel(const uint32_t* __restrict__ base,
+                      const uint32_t* __restrict__ in_block,
+                      uint32_t* __restrict__ out, int64_t B, int D, int c,
+                      ap::CurveConsts<W> cc) {
+  extern __shared__ uint32_t y[];   // [3][W][n]
+  const int tid = threadIdx.x;
+  const int h0 = D >> 1, n = h0 > 0 ? h0 : 1;
+  const int64_t lane0 = (int64_t)blockIdx.x * (D + 1);
+  ap::Proj<W> top;
+  if (tid < kTreeThreads) {
+    // y[j] = P[e_j] + P[e_{j + h0}] (y[0] = P[e_0] when D = 1); the second
+    // point waits in y[j], so that one point at a time stays in registers
+    for (int j = tid; j < n; j += kTreeThreads) {
+      ap::Proj<W> a, b;
+#pragma unroll 1
+      for (int k = h0 > 0; k >= 0; --k) {
+        load_proj<W>(a, base, B, lane0 + j + k * h0);
+        load_proj<W>(b, in_block, B, lane0 + j + k * h0);
+        ap::jac_add<W>(a, a, b, cc);
+        if (k) store_smem<W>(y, n, j, a);
+      }
+      if (h0 > 0) {
+        load_smem<W>(b, y, n, j);
+        ap::jac_add<W>(a, a, b, cc);
+      }
+      store_smem<W>(y, n, j, a);
+    }
+    tree_sync();
+    for (int h = h0 >> 1; h >= 1; h >>= 1) {
+      for (int j = tid; j < h; j += kTreeThreads) {
+        ap::Proj<W> a, b;
+        load_smem<W>(a, y, n, j);
+        load_smem<W>(b, y, n, j + h);
+        ap::jac_add<W>(a, a, b, cc);
+        store_smem<W>(y, n, j, a);
+      }
+      tree_sync();
+    }
+  } else if (tid == kTreeThreads) {
+    ap::Proj<W> b;
+    load_proj<W>(top, base, B, lane0 + D);
+    load_proj<W>(b, in_block, B, lane0 + D);
+    ap::jac_add<W>(top, top, b, cc);
+    for (int k = 1; k < c; ++k) ap::jac_double<W>(top, top, cc);
+  }
+  __syncthreads();
+  if (tid == kTreeThreads) {
+    ap::Proj<W> s;
+    load_smem<W>(s, y, n, 0);
+    const uint32_t zero[W] = {0};
+    ap::sub_lazy<W>(s.y, zero, s.y, cc.p2);   // -sum
+    ap::jac_add<W>(top, top, s, cc);
+    uint32_t* o = out + (int64_t)blockIdx.x * 3 * W;
+    ap::cond_sub<W>(o, top.x, cc.f.p);
+    ap::cond_sub<W>(o + W, top.y, cc.f.p);
+    ap::cond_sub<W>(o + 2 * W, top.z, cc.f.p);
+  }
+}
+
 // K4: x [R, W, B] (any W-word values) -> canonical x mod p, one Montgomery
 // multiply by the Montgomery one per element.
 template <int W>
@@ -323,6 +515,50 @@ int AP_ENTRY(ap_jac_add)(const void* p, const void* q, void* out, int64_t B,
   if (B > 0)
     jac_add_kernel<AP_W><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, B, cc);
+  return (int)cudaGetLastError();
+}
+
+// nwin windows of E lanes (1 <= E <= kMaxWindow) in x's B lanes; out has
+// nwin * E lanes.  Above 48 KB the window's shared memory must be allowed
+// explicitly; its error, like a refused launch, is returned.
+int AP_ENTRY(ap_jac_add_window_scan)(const void* x, void* out, int64_t B,
+                                     int nwin, int E, const void* consts,
+                                     void* stream) {
+  if (E < 1 || E > kMaxWindow || nwin < 0 || (int64_t)nwin * E > B)
+    return (int)cudaErrorInvalidValue;
+  const auto cc = *static_cast<const ap::CurveConsts<AP_W>*>(consts);
+  const int nt = ((E + 31) / 32) * 32 < kScanThreads ? ((E + 31) / 32) * 32
+                                                     : kScanThreads;
+  const size_t smem = (size_t)E * 3 * AP_W * sizeof(uint32_t);
+  const cudaError_t e = cudaFuncSetAttribute(
+      jac_add_window_scan_kernel<AP_W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (nwin > 0)
+    jac_add_window_scan_kernel<AP_W><<<nwin, nt, smem, (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (uint32_t*)out, B, E, cc);
+  return (int)cudaGetLastError();
+}
+
+// nw windows of D + 1 lanes in the B lanes of base and in_block, D =
+// 2^(c-1); out is [nw, 3, W].
+int AP_ENTRY(ap_window_combine)(const void* base, const void* in_block,
+                                void* out, int64_t B, int nw, int c,
+                                const void* consts, void* stream) {
+  if (c < 1 || c > 12 || nw < 0) return (int)cudaErrorInvalidValue;
+  const int D = 1 << (c - 1);
+  if ((int64_t)nw * (D + 1) > B) return (int)cudaErrorInvalidValue;
+  const auto cc = *static_cast<const ap::CurveConsts<AP_W>*>(consts);
+  const size_t smem = (size_t)(D > 1 ? D / 2 : 1) * 3 * AP_W * sizeof(uint32_t);
+  const cudaError_t e = cudaFuncSetAttribute(
+      window_combine_kernel<AP_W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (nw > 0)
+    window_combine_kernel<AP_W><<<nw, kTreeThreads + 32, smem,
+                                  (cudaStream_t)stream>>>(
+        (const uint32_t*)base, (const uint32_t*)in_block, (uint32_t*)out, B, D,
+        c, cc);
   return (int)cudaGetLastError();
 }
 

@@ -97,6 +97,8 @@ def _set_signatures(lib) -> None:
         "ap_mixed_add_signed_multi": [vp, vp, vp, vp, i64, i32, i64, vp, vp],
         "ap_jac_add_multi_scan": [vp, vp, vp, i64, i32, i32, vp, vp],
         "ap_jac_add": [vp, vp, vp, i64, vp, vp],
+        "ap_jac_add_window_scan": [vp, vp, i64, i32, i32, vp, vp],
+        "ap_window_combine": [vp, vp, vp, i64, i32, i32, vp, vp],
         "ap_canon": [vp, vp, i64, i64, vp, vp],
         "ap_consts_words": [],
         "ap_mixed_add": [vp, vp, vp, i64, vp, vp],

@@ -9,6 +9,8 @@ Counterparts of the reference ``ops/curve_pallas.py`` factories:
   K1    ``mixed_add_signed_multi``  ``pallas_mixed_add_signed_multi`` :250
   K2    ``jac_add_multi_scan``      ``pallas_jac_add_multi_scan``     :357
   K3    ``jac_add``                 ``pallas_jac_add``                :292
+        ``jac_add_window_scan``     (its rounds in a window's scan)
+        ``window_combine``          (its rounds in the MSM's phase 4)
   K4    ``canon``                   ``pallas_canon``                  :404
   K5    ``mixed_add``               ``pallas_mixed_add``              :156
   K6    ``mixed_add_signed``        ``pallas_mixed_add_signed``       :201
@@ -16,8 +18,16 @@ Counterparts of the reference ``ops/curve_pallas.py`` factories:
   K8    ``field_mul``               ``pallas_field_mul``              :447
   ====  ==========================  =======================================
 
-K1-K4 are the MSM's (ops/msm.py); K5-K8 serve no prove path, in the port as
-in the reference, whose MSM does not call them either.  Every curve kernel
+K1-K3 are the MSM's (ops/msm.py).  Besides one complete add per lane, K3
+has an entry for each chain of adds the MSM builds from it, each one launch
+with one block per window: ``jac_add_window_scan`` (the Kogge-Stone scan of
+each window's block or super-block sums) and ``window_combine`` (phase 4:
+P[e_d], the tree sum over d, D P[e_D] by doublings, minus the sum).  Their
+plain versions run the chain a round at a time, each round one add over all
+lanes rolled into place, which the kernels follow word for word.  Every
+curve kernel stores canonical words, so the MSM needs no K4; K4 serves,
+with K5-K8, only the kernel-test path, as in the reference, whose MSM does
+not call K5-K8 either.  Every curve kernel
 takes limbs-major ``[coord, W, B]`` int32 (lane axis last), as the TPU
 kernels take it; K8 takes batch-major ``[N, W]``.  Each is built for W = 8
 (BN254, BLS12-381's Fr) and W = 12 (BLS12-381's Fp).
@@ -50,8 +60,9 @@ from .field import FieldOps
 SIGN_SHIFT = 26  # bit of a packed member index carrying the digit sign
 ROW_MASK = (1 << SIGN_SHIFT) - 1
 
-MSM_KERNELS = ("mixed_add_signed_multi", "jac_add_multi_scan", "jac_add", "canon")
-OFF_PATH_KERNELS = ("mixed_add", "mixed_add_signed", "jac_add_multi", "field_mul")
+MSM_KERNELS = ("mixed_add_signed_multi", "jac_add_multi_scan", "jac_add",
+               "jac_add_window_scan", "window_combine")
+OFF_PATH_KERNELS = ("canon", "mixed_add", "mixed_add_signed", "jac_add_multi", "field_mul")
 KERNELS = MSM_KERNELS + OFF_PATH_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 LAUNCHES_BY_WIDTH = dict.fromkeys(((k, w) for k in KERNELS for w in WIDTHS), 0)
@@ -149,6 +160,58 @@ def plain_jac_add(ops: CurveOps, p, q):
 def plain_canon(ops: CurveOps, x):
     f = ops.f
     return f.reduce(f.mul(x.transpose(1, 2), f.one)).transpose(1, 2).contiguous()
+
+
+def inf_lm(ops: CurveOps, w: int):
+    """Limbs-major identity (0 : 1 : 0) at lane width w."""
+    z = torch.zeros((ops.W, w), dtype=torch.int32, device=ops.device)
+    one = ops.f.one[:, None].expand(ops.W, w)
+    return torch.stack([z, one, z]).contiguous()
+
+
+def plain_jac_add_window_scan(ops: CurveOps, x, nwin: int, E: int, add=None):
+    """The MSM's rolled Kogge-Stone scan of nwin windows of E lanes (lane
+    w * E + i of x [3, W, B]) -> [3, W, nwin * E].  Round sh adds the lane
+    sh below, or the identity where that lane is outside the window (which
+    scales the point: the kernel does the same).  Each round is one call of
+    ``add`` (default ``plain_jac_add``; ``jac_add`` makes it a K3 launch
+    per round, as the MSM ran it before the scan had its own kernel)."""
+    add = add or plain_jac_add
+    i32 = dict(dtype=torch.int32, device=x.device)
+    B = x.shape[-1]
+    b_idx = torch.cat([
+        torch.arange(E, **i32).repeat(nwin), torch.full((B - nwin * E,), -1, **i32)
+    ])
+    inf = inf_lm(ops, B)
+    scan = x
+    for i in range(max(0, (E - 1).bit_length())):
+        sh = 1 << i
+        shifted = torch.where((b_idx < sh)[None, None, :], inf, torch.roll(scan, sh, dims=2))
+        scan = add(ops, scan, shifted.contiguous())
+    return scan[:, :, : nwin * E].contiguous()
+
+
+def plain_window_combine(ops: CurveOps, base, in_block, nw: int, c: int):
+    """The MSM's phase 4 a round at a time: P[e_d] = base + in_block (lane
+    w * (D + 1) + d, D = 2^(c-1)), the rolled tree sum over d < D (only
+    lane d = 0 of each window is read), both made canonical, D P[e_D] by
+    c - 1 doublings, minus the sum -> [nw, 3, W]."""
+    D = 1 << (c - 1)
+    p_e = plain_jac_add(ops, base, in_block)
+    tree = p_e
+    for i in range((D - 1).bit_length()):
+        tree = plain_jac_add(ops, tree, torch.roll(tree, -(D >> (i + 1)), dims=2))
+    tree = plain_canon(ops, tree)
+    p_e = plain_canon(ops, p_e)
+    stride = D + 1
+    prefix_sum = tree[:, :, 0 : nw * stride : stride].permute(2, 0, 1)  # [nw, 3, W]
+    d_top = p_e[:, :, D : nw * stride : stride].permute(2, 0, 1)
+    for _ in range(c - 1):                          # D * P[e_D], D = 2^(c-1)
+        d_top = ops.jac_double(d_top)
+    neg_sum = torch.stack(
+        [prefix_sum[:, 0], ops.f.neg(prefix_sum[:, 1]), prefix_sum[:, 2]], dim=1
+    )
+    return ops.jac_add(d_top, neg_sum)              # [nw, 3, W]
 
 
 def plain_mixed_add(ops: CurveOps, acc, pts):
@@ -298,6 +361,48 @@ def jac_add(ops: CurveOps, p, q):
     )
     raise_on(rc, "jac_add")
     _count("jac_add", W)
+    return out
+
+
+def jac_add_window_scan(ops: CurveOps, x, nwin: int, E: int):
+    """K3's scan: the inclusive scan of each of nwin windows of E lanes
+    (lane w * E + i of x [3, W, B], 1 <= E <= 1024; lanes past nwin * E are
+    not read) -> [3, W, nwin * E], in one launch, one block per window."""
+    if x.device.type == "cpu":
+        return plain_jac_add_window_scan(ops, x, nwin, E)
+    W = ops.W
+    B = x.shape[-1]
+    check_tensor("x", x, (3, W, B))
+    if not (1 <= E <= 1024 and nwin * E <= B):
+        raise ValueError(f"{nwin} windows of {E} lanes in {B}: expected 1 <= E <= 1024")
+    out = torch.empty((3, W, nwin * E), dtype=x.dtype, device=x.device)
+    rc = _kernel("jac_add_window_scan", W)(
+        x.data_ptr(), out.data_ptr(), B, nwin, E, _consts(ops), stream_of(x)
+    )
+    raise_on(rc, "jac_add_window_scan")
+    _count("jac_add_window_scan", W)
+    return out
+
+
+def window_combine(ops: CurveOps, base, in_block, nw: int, c: int):
+    """K3's phase 4: S_w = D P[e_D] - sum_{d<D} P[e_d] for each of nw windows,
+    P[e_d] = base + in_block at lane w * (D + 1) + d of [3, W, B], D =
+    2^(c-1) -> [nw, 3, W] canonical, in one launch, one block per window."""
+    if base.device.type == "cpu":
+        return plain_window_combine(ops, base, in_block, nw, c)
+    W = ops.W
+    B = base.shape[-1]
+    check_tensor("base", base, (3, W, B))
+    check_tensor("in_block", in_block, (3, W, B))
+    if not (1 <= c <= 12 and nw * ((1 << (c - 1)) + 1) <= B):
+        raise ValueError(f"{nw} windows at c = {c} in {B} lanes")
+    out = torch.empty((nw, 3, W), dtype=base.dtype, device=base.device)
+    rc = _kernel("window_combine", W)(
+        base.data_ptr(), in_block.data_ptr(), out.data_ptr(), B, nw, c,
+        _consts(ops), stream_of(base),
+    )
+    raise_on(rc, "window_combine")
+    _count("window_combine", W)
     return out
 
 

@@ -6,12 +6,14 @@ algorithm): signed balanced c-bit windows, one sort of each window by
 prefix sums computed block-decomposed with static shapes.
 
     phase 1   K-step in-block reduction          -> K1 mixed_add_signed_multi
-    phase 2   scan of the block sums: one level (Kogge-Stone, K3), or two
-              levels (2a K2 jac_add_multi_scan, 2b Kogge-Stone K3, 2c one
-              row gather of the 2a scan)
-    phase 3   in-block rescan up to e_d          -> K1, then K3
-    phase 4   tree sum over d (K3), canonical    -> K4 canon
-              form, D * P[e_D] - sum P[e_d]      -> plain torch
+    phase 2   scan of the block sums per window: one level (Kogge-Stone,
+              K3 jac_add_window_scan), or two levels (2a K2
+              jac_add_multi_scan, 2b Kogge-Stone over the super sums, K3
+              jac_add_window_scan, 2c one row gather of the 2a scan, then
+              K3 jac_add)
+    phase 3   in-block rescan up to e_d          -> K1
+    phase 4   P[e_d], tree sum over d, D * P[e_D] - sum P[e_d]
+                                                 -> K3 window_combine
 
 This is the reference's Pallas branch; the wrappers in ``curve_kernels``
 launch the CUDA kernels for CUDA tensors and run their plain versions for
@@ -33,10 +35,12 @@ from ..fields.words import mont_words_to_ints
 from .curve import CurveOps, curve_ops
 from .curve_kernels import (
     SIGN_SHIFT,
-    canon,
+    inf_lm,
     jac_add,
     jac_add_multi_scan,
+    jac_add_window_scan,
     mixed_add_signed_multi,
+    window_combine,
 )
 from .field import FieldOps, field_ops
 
@@ -118,13 +122,6 @@ def _pad_lanes(n: int) -> int:
     return -(-n // _TILE) * _TILE
 
 
-def _inf_lm(ops: CurveOps, w: int):
-    """Limbs-major identity (0 : 1 : 0) at lane width w."""
-    z = torch.zeros((ops.W, w), dtype=torch.int32, device=ops.device)
-    one = ops.f.one[:, None].expand(ops.W, w)
-    return torch.stack([z, one, z]).contiguous()
-
-
 def _no_mark(name: str) -> None:
     pass
 
@@ -137,9 +134,9 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
     set it (the reference caps it at 8 for BLS12-381; the port keeps 16).
 
     ``mark(name)``, if given, is called at the end of each part of the
-    pipeline with the part's name ('sort', 'K1', 'K2', 'K3', 'K4',
-    'gathers', 'phase 4 plain'); a caller that synchronises there can time
-    the parts."""
+    pipeline with the part's name ('sort', 'K1', 'K2', 'K3 scan', 'K3 add',
+    'gathers', 'phase 4'); a caller that synchronises there can time the
+    parts."""
     mark = mark or _no_mark
     dev = points_pad.device
     W = ops.W
@@ -189,7 +186,7 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
     # ---- phase 1: in-block reduction -> block sums [3, W, w1p]
     w1 = nw * nblk
     w1p = _pad_lanes(w1)
-    block_sums = fused_gather_steps(_inf_lm(ops, w1p), packed_blk, K, w1, w1p)
+    block_sums = fused_gather_steps(inf_lm(ops, w1p), packed_blk, K, w1, w1p)
     mark("K1")
 
     # ---- phase 3 targets e_d = last sorted index with |digit| <= d
@@ -215,20 +212,10 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
     inf_row_bm = ops.jac_infinity((1,))
 
     if not two_level:
-        # ---- phase 2, one level: Kogge-Stone inclusive scan over block sums
-        # per window (lane w*nblk + b; shifts must not cross windows)
-        b_idx = torch.cat([
-            torch.arange(nblk, **i32).repeat(nw), torch.full((w1p - w1,), -1, **i32)
-        ])
-        inf_w1p = _inf_lm(ops, w1p)
-        scan = block_sums
-        for i in range(max(0, (nblk - 1).bit_length())):
-            sh = 1 << i
-            shifted = torch.where(
-                (b_idx < sh)[None, None, :], inf_w1p, torch.roll(scan, sh, dims=2)
-            )
-            scan = jac_add(ops, scan, shifted.contiguous())
-        mark("K3")
+        # ---- phase 2, one level: inclusive scan over the block sums of
+        # each window (lane w*nblk + b)
+        scan = jac_add_window_scan(ops, block_sums, nw, nblk)
+        mark("K3 scan")
         scan_bm = torch.cat([scan.permute(2, 0, 1), inf_row_bm])
         lane = w_ids * nblk + prev.clamp(0, nblk - 1)
         base_lm = gather_rows_lm(scan_bm, lane, prev < 0)
@@ -244,29 +231,18 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
             bs5.movedim(4, 0).reshape(S, 3, W, wsb), (0, wsbp - wsb)
         ).reshape(S * 3, W, wsbp).contiguous()
         mark("gathers")
-        is_scan = jac_add_multi_scan(ops, _inf_lm(ops, wsbp), qs)
+        is_scan = jac_add_multi_scan(ops, inf_lm(ops, wsbp), qs)
         super_sums = is_scan[-3:]
         mark("K2")
 
-        # 2b: Kogge-Stone scan over the super sums per window
-        sb_idx = torch.cat([
-            torch.arange(nsb, **i32).repeat(nw), torch.full((wsbp - wsb,), -1, **i32)
-        ])
-        inf_wsbp = _inf_lm(ops, wsbp)
-        super_scan = super_sums.contiguous()
-        for i in range(max(0, (nsb - 1).bit_length())):
-            sh = 1 << i
-            shifted = torch.where(
-                (sb_idx < sh)[None, None, :], inf_wsbp,
-                torch.roll(super_scan, sh, dims=2),
-            )
-            super_scan = jac_add(ops, super_scan, shifted.contiguous())
-        mark("K3")
+        # 2b: inclusive scan over the super sums of each window
+        super_scan = jac_add_window_scan(ops, super_sums.contiguous(), nw, nsb)
+        mark("K3 scan")
 
         # base = super_scan[esb_prev - 1] + is_scan[esb_prev][r2]
         esb_prev = torch.where(prev >= 0, torch.div(prev, S, rounding_mode="floor"), -1)
         r2 = torch.where(prev >= 0, prev - esb_prev * S, -1)
-        ss_bm = torch.cat([super_scan.permute(2, 0, 1)[:wsb], inf_row_bm])
+        ss_bm = torch.cat([super_scan.permute(2, 0, 1), inf_row_bm])
         lane_ss = w_ids * nsb + (esb_prev - 1).clamp(0, nsb - 1)
         base_lm = gather_rows_lm(ss_bm, lane_ss, esb_prev - 1 < 0)
 
@@ -280,9 +256,9 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
         rescan = tbl[idx.long()].T.reshape(3, W, w2p).contiguous()
         mark("gathers")
         base_lm = jac_add(ops, base_lm, rescan)
-        mark("K3")
+        mark("K3 add")
 
-    # ---- phase 3: in-block point rescan up to e_d, then P[e_d]
+    # ---- phase 3: in-block point rescan up to e_d
     blk_members = torch.gather(
         packed_blk.permute(1, 2, 0),                          # [nw, nblk, K]
         1,
@@ -292,29 +268,13 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
     live_all = (j_all <= r[None]) & (e[None] >= 0)
     idx_all = torch.where(live_all, blk_members, n)
     mark("gathers")
-    in_block = fused_gather_steps(_inf_lm(ops, w2p), idx_all, K, w2, w2p)
+    in_block = fused_gather_steps(inf_lm(ops, w2p), idx_all, K, w2, w2p)
     mark("K1")
-    p_e = jac_add(ops, base_lm, in_block)                     # [3, W, w2p]
 
-    # ---- phase 4: S_w = D * P[e_D] - sum_{d<D} P[e_d].  Tree sum along d at
-    # constant shape; only lane d = 0 of each window is read at the end.
-    tree = p_e
-    for i in range((D - 1).bit_length()):
-        tree = jac_add(ops, tree, torch.roll(tree, -(D >> (i + 1)), dims=2))
-    mark("K3")
-    tree = canon(ops, tree)
-    p_e = canon(ops, p_e)
-    mark("K4")
-    stride = D + 1
-    prefix_sum = tree[:, :, 0 : nw * stride : stride].permute(2, 0, 1)  # [nw, 3, W]
-    d_top = p_e[:, :, D : nw * stride : stride].permute(2, 0, 1)
-    for _ in range(c - 1):                          # D * P[e_D], D = 2^(c-1)
-        d_top = ops.jac_double(d_top)
-    neg_sum = torch.stack(
-        [prefix_sum[:, 0], ops.f.neg(prefix_sum[:, 1]), prefix_sum[:, 2]], dim=1
-    )
-    out = ops.jac_add(d_top, neg_sum)               # [nw, 3, W]
-    mark("phase 4 plain")
+    # ---- phase 4: P[e_d] = base + in_block, S_w = D * P[e_D] - sum_{d<D}
+    # P[e_d]
+    out = window_combine(ops, base_lm, in_block, nw, c)      # [nw, 3, W]
+    mark("phase 4")
     return out
 
 
@@ -451,7 +411,10 @@ class MsmCtx:
             )
             mark("digits")
             ws = window_sums_scan(self.ops, pts_pad, digs.contiguous(), c, mark=mark)
-            total = ws if total is None else self.ops.jac_add(total, ws)
+            if total is not None:   # add the earlier pieces' window sums (K3)
+                ws = jac_add(self.ops, total.permute(1, 2, 0).contiguous(),
+                             ws.permute(1, 2, 0).contiguous()).permute(2, 0, 1)
+            total = ws
         folded = self._host_fold(total, c)
         mark("host fold")
         return folded

@@ -16,6 +16,9 @@ use and caches its test SRS under its own ``.cache/``.
   widths of BN254 2^16 and 2^17 and BLS12-381 2^14.  CUDA events over
   ``--reps`` launches after one warm-up; the inputs come from fixed seeds,
   so two trees see the same data.
+- One commit-sized MSM per curve (BN254 65,539 and BLS12-381 16,387 points
+  of that table, random scalars), warm, split by the tree's own marks
+  (host seconds between synchronised marks).
 - With ``--prove``: chip_smoke.py's SquareChain at BN254 2^16 on the test
   SRS and at BLS12-381 2^14 on the Ethereum KZG ceremony, compiled, then
   proved and self-verified twice (``CompiledCircuit.verify``); host
@@ -88,6 +91,15 @@ def main() -> int:
             acc, qs = s.k2_inputs(lanes)
             ms = cs.cuda_ms(lambda: ck.jac_add_multi_scan(ops, acc, qs), args.reps)
             record("jac_add_multi_scan", W=W, lanes=lanes, steps=M.SUPER, ms=ms)
+        ctx = M.msm_ctx(curve, s.dev)
+        pts = s.table[:n].reshape(n, 2, W)
+        gen = random.Random(n)
+        mont = ctx.fr.encode([gen.randrange(curve.fr.modulus) for _ in range(n)])
+        want = ctx.msm_to_affine_int(pts, mont, kind="mont")
+        split = cs.Split(torch)
+        got = ctx.msm_to_affine_int(pts, mont, kind="mont", mark=split)
+        record("msm_split", curve=curve.name, points=n, total_s=split.last - split.t0,
+               parts=split.parts, equal=got == want)
 
     if args.prove:
         for curve, setup, log_n in (

@@ -11,7 +11,14 @@ result line):
    version, word for word (tolerance: exact): K1-K4 and K5-K7 at W = 8 on random
    valid points at the lane widths a BN254 2^16 commit gives K1-K4 (c = 11,
    K = 16), and at W = 12 at the widths of a BLS12-381 2^14 commit, with
-   identity, doubling and cancelling lanes; K1 gathers from a table of the
+   identity, doubling and cancelling lanes; K3's window scan over the 24
+   windows of the super sums (E = 257 and 513 at W = 8, the 2^16 and 2^17
+   commits; E = 65 at W = 12), beside the same scan run as one K3 launch
+   per round (the MSM's scan before it had its own kernel), and K3's phase
+   4 on 24 windows of D = 1024 at both widths, each printed with its bound
+   and the depth of its chain of dependent point operations (the scan's
+   bound counts the E - 1 adds a window's scan needs, and the adds its
+   Kogge-Stone rounds do are printed beside it); K1 gathers from a table of the
    commit's own size (65,540 rows at W = 8, 16,388 at W = 12) and is timed
    at the phase-1 and phase-3 widths; K2 is held to its plain version at
    every thread count per lane T and timed at every T at the phase-2a
@@ -25,11 +32,12 @@ result line):
    2^16-constraint SquareChain circuit on BN254 with the test SRS on the
    GPU, prove and self-verify it (CompiledCircuit.verify, batch-major
    quotient), marshal; the proof must be 24 words, a flipped public input
-   must be rejected, and K1-K4 must have launched;
+   must be rejected, and every MSM kernel (K1, K2, K3 and its scan and
+   phase-4 entries) must have launched; the prove's MSM share is printed;
 3. one commit-sized MSM (65,539 points of that SRS): the kernel path must
    equal the plain path, and on a 4,096-point prefix the host Pippenger;
-   then its split (sort, gathers, K1-K4, phase-4 plain ops, host fold) from
-   synchronised marks;
+   then its split (sort, gathers, K1, K2, K3's scan, add and phase 4, host
+   fold) from synchronised marks;
 4. a small circuit proved on the GPU (device MSM forced) must give the same
    proof bytes as on the CPU through both quotient paths, and a BSB22
    circuit must prove and verify;
@@ -44,23 +52,25 @@ result line):
 6. the BLS12-381 path, with the counts zeroed just before it: the 2^14
    SquareChain (y in BLS12-381's Fr) compiled on the Ethereum KZG ceremony,
    proved and self-verified; the proof must be 33 words, a flipped public
-   input rejected, and K1-K4 launched at W = 12.  Then a small BLS12-381
+   input rejected, and the MSM kernels launched at W = 12.  Then a small BLS12-381
    circuit with the device MSM forced gives the CPU's proof bytes through
    both quotient paths (the four-step one runs K9 on BLS12-381's Fr), and
    an MSM over all 32,768 ceremony points agrees between the kernel path
    at fuse depths 16 and 8 and the plain path, and on a 4,096-point prefix
    (c = 11) with the host Pippenger; then the split of one 16,387-point
    commit MSM;
-7. the kernel-test path of K5-K8 (the counterpart of the reference's
+7. the kernel-test path of K4-K8 (the counterpart of the reference's
    tests/test_pallas_kernels.py), with the counts zeroed just before it:
-   on each curve, K5, K6 and K7 on identity, doubling and cancelling lanes
+   on each curve, K4 on arbitrary words against its plain version and host
+   integers, K5, K6 and K7 on identity, doubling and cancelling lanes
    against host EC arithmetic, and K8 on both of its fields against host
    integers.
 
 Output: timings on stdout; before the last line the card's name and power
 limit, then a JSON line of per-kernel numbers: launches from the path that
-runs the kernel (K1-K4 at W = 8 and K9 from the 2^17 path, K1-K4 at W = 12
-from the BLS12-381 path, K5-K8 from the kernel-test path), the time of
+runs the kernel (the MSM kernels at W = 8 and K9 from the 2^17 path, the
+MSM kernels at W = 12 from the BLS12-381 path, K4-K8 from the kernel-test
+path), the time of
 kernel and plain version at phase 1's shapes (K9's ms and plain_ms are the
 sums over its four pass shapes, itemised under "passes"; K1's and K2's other
 shapes are itemised under "shapes"), and the bound at
@@ -90,7 +100,8 @@ CURVE_SRC = "algoplonk_tpu_torch/csrc/curve_kernels.cu"
 NTT_SRC = "algoplonk_tpu_torch/csrc/ntt_kernels.cu"
 SOURCE = {
     "mixed_add_signed_multi": MSM_SRC, "jac_add_multi_scan": MSM_SRC,
-    "jac_add": MSM_SRC, "canon": MSM_SRC, "mixed_add": CURVE_SRC,
+    "jac_add": MSM_SRC, "jac_add_window_scan": MSM_SRC, "window_combine": MSM_SRC,
+    "canon": MSM_SRC, "mixed_add": CURVE_SRC,
     "mixed_add_signed": CURVE_SRC, "jac_add_multi": CURVE_SRC,
     "field_mul": CURVE_SRC, "ntt_pass": NTT_SRC,
 }
@@ -98,6 +109,8 @@ REPLACES = {
     "mixed_add_signed_multi": "algoplonk_tpu/ops/curve_pallas.py:250",
     "jac_add_multi_scan": "algoplonk_tpu/ops/curve_pallas.py:357",
     "jac_add": "algoplonk_tpu/ops/curve_pallas.py:292",
+    "jac_add_window_scan": "algoplonk_tpu/ops/curve_pallas.py:292",
+    "window_combine": "algoplonk_tpu/ops/curve_pallas.py:292",
     "canon": "algoplonk_tpu/ops/curve_pallas.py:404",
     "mixed_add": "algoplonk_tpu/ops/curve_pallas.py:156",
     "mixed_add_signed": "algoplonk_tpu/ops/curve_pallas.py:201",
@@ -111,6 +124,7 @@ REPLACES = {
 # counted
 MIXED_ADD_MULS = 11
 JAC_ADD_MULS = 12
+JAC_DOUBLE_MULS = 8
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 IMUL_PER_CLK_PER_SM = 64    # 32-bit integer multiply-adds, compute capability 9.0
 
@@ -226,6 +240,17 @@ def commit_widths(n: int):
             M._pad_lanes(nw * (nblk // M.SUPER)))
 
 
+def commit_windows(n: int):
+    """(windows, super-blocks per window, D, c) of one MSM of n points: K3's
+    scan runs over nw windows of nsb lanes, its phase 4 over nw windows of
+    D + 1 lanes."""
+    from algoplonk_tpu_torch.ops import msm as M
+
+    c = M.pick_window_bits(n)
+    nblk = -(-n // (M.K_BLOCK * M.SUPER)) * M.SUPER
+    return M.num_windows(c), nblk // M.SUPER, 1 << (c - 1), c
+
+
 class CommitInputs:
     """Random inputs of the MSM kernels at the lane widths of one commit of
     n_commit points on ``curve`` (commit_widths): a table of the commit's
@@ -295,12 +320,14 @@ def forced_threads(T: int):
         ck.scan_threads = saved
 
 
-def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=()):
+def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=(), scan_E=()):
     """K1-K7 on ``curve`` against their plain versions at the lane widths of
     one commit of n_commit points; names carry ``suffix``.  K1 gathers from
     a table of the commit's own size (n_commit + 1 rows) and is timed at
     the phase-1 and phase-3 widths; K2 is checked at every T it takes and
-    timed at every T at the commit's phase-2a width and at ``k2_lanes``."""
+    timed at every T at the commit's phase-2a width and at ``k2_lanes``;
+    K3's scan at the commit's windows and at windows of ``scan_E`` lanes,
+    its phase 4 at the commit's windows."""
     from algoplonk_tpu_torch.ops import curve_kernels as ck
     from algoplonk_tpu_torch.ops import msm as M
 
@@ -371,6 +398,9 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=()):
             with forced_threads(T):
                 ms = cuda_ms(lambda: ck.jac_add_multi_scan(ops, a_x, q_x), 20)
             shapes.append({"lanes": lanes, "T": T, "picked": T == picked, "ms": ms})
+        if lanes != wsbp:   # the plain scan at the wrapper's T (check() times wsbp's)
+            shapes[-len(ck.SCAN_THREADS) + ck.SCAN_THREADS.index(picked)]["plain_ms"] = \
+                cuda_ms(lambda: ck.plain_jac_add_multi_scan(ops, a_x, q_x), 1)
     check("jac_add_multi_scan",
           lambda: ck.jac_add_multi_scan(ops, acc2, qs),
           lambda: ck.plain_jac_add_multi_scan(ops, acc2, qs), 20,
@@ -378,7 +408,9 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=()):
     results[-1]["shapes"] = shapes
     log(f"jac_add_multi_scan{suffix} by lanes and T (* the wrapper's): "
         + ", ".join(f"{x['lanes']} lanes T={x['T']}{'*' if x['picked'] else ''} "
-                    f"{x['ms']:.4f} ms" for x in shapes))
+                    f"{x['ms']:.4f} ms"
+                    + (f" (plain {x['plain_ms']:.2f} ms)" if "plain_ms" in x else "")
+                    for x in shapes))
     check("jac_add_multi",
           lambda: ck.jac_add_multi(ops, acc2, qs),
           lambda: ck.plain_jac_add_multi(ops, acc2, qs), 20,
@@ -390,6 +422,54 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=()):
     q3[1, :, 64:128] = ops.f.neg(p3[1, :, 64:128].T).T
     check("jac_add", lambda: ck.jac_add(ops, p3, q3),
           lambda: ck.plain_jac_add(ops, p3, q3), 50, w2p * JAC_ADD_MULS, nbytes(p3, q3))
+    # K3's scan over nw windows of E lanes.  The bound counts the E - 1 adds
+    # a window's inclusive scan needs; the Kogge-Stone rounds do nw E rounds
+    # adds (every lane adds once per round, the identity below the shift),
+    # printed as the work done, in a chain of rounds dependent adds.  Beside
+    # it, the same rolled scan with one K3 launch per round, as the MSM ran
+    # it before the scan had its own kernel; p + p and p + (-p) in round 1
+    nw, nsb, D, c = commit_windows(n_commit)
+    first = len(results)
+    for E in (nsb, *scan_E):
+        x = s.rand_proj(M._pad_lanes(nw * E))[0]
+        x[:, :, 9] = x[:, :, 8]
+        x[:, :, 11] = x[:, :, 10]
+        x[1, :, 11] = ops.f.neg(x[1, :, 10].contiguous())
+        rounds = (E - 1).bit_length()
+
+        def per_round():
+            return ck.plain_jac_add_window_scan(ops, x, nw, E, add=ck.jac_add)
+
+        check("jac_add_window_scan", lambda: ck.jac_add_window_scan(ops, x, nw, E),
+              lambda: ck.plain_jac_add_window_scan(ops, x, nw, E), 20,
+              nw * (E - 1) * JAC_ADD_MULS, 3 * W * 4 * nw * E,
+              windows=nw, E=E, depth=rounds, work_adds=nw * rounds * E)
+        if not torch.equal(per_round(), ck.jac_add_window_scan(ops, x, nw, E)):
+            raise AssertionError("jac_add_window_scan disagrees with a K3 launch per round")
+        results[-1]["rounds_ms"] = cuda_ms(per_round, 20)
+        log(f"  {nw} windows of E = {E}: chain of {rounds} dependent adds, "
+            f"{nw * (E - 1)} adds needed, {nw * rounds * E} done; a K3 launch per round "
+            f"{results[-1]['rounds_ms']:.4f} ms")
+    main, *more = results[first:]
+    del results[first + 1:]
+    main["shapes"] = [{k: r[k] for k in ("windows", "E", "depth", "work_adds", "ms",
+                                         "rounds_ms", "plain_ms", "bound_ms")}
+                      for r in (main, *more)]
+    # K3's phase 4 over nw windows of D + 1 lanes: 2 D adds, c - 1 doublings
+    # and one add per window, in a chain of c + 2 dependent point operations
+    # (two P[e_d] adds, c - 1 tree rounds, the final add); a doubling in the
+    # P[e_d] add, and window 1's P[e_D] the identity
+    base, in_block = s.rand_proj(w2p)[0], s.rand_proj(w2p)[0]
+    in_block[:, :, 64:128] = base[:, :, 64:128]
+    top = 2 * D + 1
+    in_block[:, :, top] = base[:, :, top]
+    in_block[1, :, top] = ops.f.neg(base[1, :, top].contiguous())
+    check("window_combine", lambda: ck.window_combine(ops, base, in_block, nw, c),
+          lambda: ck.plain_window_combine(ops, base, in_block, nw, c), 20,
+          nw * (2 * D * JAC_ADD_MULS + (c - 1) * JAC_DOUBLE_MULS + JAC_ADD_MULS),
+          nbytes(base, in_block), windows=nw, D=D, depth=c + 2)
+    log(f"  {nw} windows of D = {D}: chain of {c + 2} dependent point operations "
+        f"(2 adds, {c - 1} tree rounds, 1 add)")
     # K4 on arbitrary W-word values
     x4 = torch.randint(-2**31, 2**31, (3, W, w2p), generator=s.g, dtype=torch.int64)
     x4 = x4.to(torch.int32).to(s.dev).contiguous()
@@ -478,9 +558,11 @@ def ntt_kernel_phase(torch, bound):
 
 
 def kernel_test_path(torch, curve, lanes: int = 1024):
-    """K5-K8 on one curve as the reference's kernel tests drive them, each
-    result against host arithmetic: K5 and K6 on identity, doubling and
-    cancelling lanes, K7 over four steps, K8 on both fields."""
+    """K4-K8 on one curve as the reference's kernel tests drive them, each
+    result against host arithmetic: K4 on arbitrary words (and against its
+    plain version), K5 and K6 on identity, doubling and cancelling lanes,
+    K7 over four steps, K8 on both fields."""
+    from algoplonk_tpu_torch.fields.words import words_to_ints
     from algoplonk_tpu_torch.host import fp as hfp
     from algoplonk_tpu_torch.ops import curve_kernels as ck
     from algoplonk_tpu_torch.ops.curve import curve_ops
@@ -507,10 +589,20 @@ def kernel_test_path(torch, curve, lanes: int = 1024):
     def affine(out_lm):
         return ops.decode_affine(ops.to_affine(out_lm.permute(2, 0, 1)))
 
+    def ints(words_lm):
+        return words_to_ints(words_lm.transpose(1, 2).reshape(-1, ops.W).cpu().numpy())
+
+    gen = torch.Generator(device="cpu").manual_seed(curve.fp.nbits)
+    x = torch.randint(-2**31, 2**31, (3, ops.W, lanes), generator=gen, dtype=torch.int64)
+    x = x.to(torch.int32).to(ops.device).contiguous()
+    got = ck.canon(ops, x)
+    ok = torch.equal(got, ck.plain_canon(ops, x))
+    ok &= ints(got) == [v % curve.fp.modulus for v in ints(x)]
+
     dP = [hfp.ec_double(F, a) for a in P]
     acc = lm(proj(P))
     got = affine(ck.mixed_add(ops, acc, lm(ops.encode_affine(Q))))
-    ok = got == [hfp.ec_add(F, a, b) for a, b in zip(dP, Q)]
+    ok &= got == [hfp.ec_add(F, a, b) for a, b in zip(dP, Q)]
     signed = [hfp.ec_neg(F, q) if s and q else q for q, s in zip(Q, neg)]
     neg_t = torch.tensor([neg], dtype=torch.int32, device="cuda")
     got = affine(ck.mixed_add_signed(ops, acc, lm(ops.encode_affine(Q)), neg_t))
@@ -593,7 +685,8 @@ class Split:
     def report(self, tag):
         total = self.last - self.t0
         log(f"{tag} MSM split (s, synchronised marks): total {total:.4f}; "
-            + json.dumps({k: round(v, 5) for k, v in self.parts.items()}))
+            + json.dumps({k: round(v, 5) for k, v in self.parts.items()})
+            + f"; phase 4 {self.parts['phase 4'] / total:.1%} of the MSM")
 
 
 def msm_split(torch, ctx, pts, mont, want, tag):
@@ -685,7 +778,8 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     log(_build.build_log.strip())
     kernels = kernel_phase(torch, rng, apt.BN254, (1 << LOG_N) + 3, bound, "",
-                           k2_lanes=(commit_widths((1 << LM_LOG_N) + 3)[2],))
+                           k2_lanes=(commit_widths((1 << LM_LOG_N) + 3)[2],),
+                           scan_E=(commit_windows((1 << LM_LOG_N) + 3)[1],))
     kernels += kernel_phase(torch, rng, apt.BLS12_381, (1 << BLS_LOG_N) + 3, bound, "[w12]")
     kernels += field_mul_phase(torch, apt, bound)
     kernels.append(ntt_kernel_phase(torch, bound))
@@ -722,7 +816,8 @@ def main() -> int:
             f"{t_compile:.2f} s")
         log(f"{tag} prove + self-verify: {t_verify:.2f} s; phases (s): "
             + json.dumps({k: round(v, 4) for k, v in vp.phase_seconds.items()}))
-        log(f"{tag} prove MSMs: {msm_t.calls} calls, {msm_t.seconds:.2f} s")
+        log(f"{tag} prove MSMs: {msm_t.calls} calls, {msm_t.seconds:.2f} s, "
+            f"{msm_t.seconds / t_verify:.1%} of prove + self-verify")
         log(f"{tag} launches: {launches}; by width: {by_width}; by width in prove + "
             f"self-verify alone: {in_prove}")
         log(f"{tag} peak device memory: {peak / 2**30:.3f} GiB")
@@ -887,17 +982,17 @@ def main() -> int:
     msm_split(torch, ctx, pts[:n_commit], mont[:n_commit], want,
               f"[bls12_381] {n_commit}-point commit")
 
-    # ---- phase 7: the kernel-test path of K5-K8
+    # ---- phase 7: the kernel-test path of K4-K8
     off_path = {}
     for curve in (apt.BN254, bls):
         reset_counts()
         t0 = time.perf_counter()
         ok = kernel_test_path(torch, curve)
         launched = {k: v for k, v in ck.LAUNCHES_BY_WIDTH.items() if v}
-        log(f"[{curve.name}] kernel-test path of K5-K8: {time.perf_counter() - t0:.2f} s, "
+        log(f"[{curve.name}] kernel-test path of K4-K8: {time.perf_counter() - t0:.2f} s, "
             f"equal to host: {ok}; launches: {launched}")
         if not ok:
-            raise AssertionError(f"K5-K8 disagree with host arithmetic on {curve.name}")
+            raise AssertionError(f"K4-K8 disagree with host arithmetic on {curve.name}")
         for key, v in launched.items():
             off_path[curve.name, key] = v
     for k in kernels:
@@ -910,7 +1005,8 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on their path: {unlaunched}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "passes", "shapes")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "depth", "work_adds",
+            "rounds_ms", "passes", "shapes")
     line = [{key: k[key] for key in keys if key in k} for k in kernels]
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

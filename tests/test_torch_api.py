@@ -1,8 +1,8 @@
 """The port's own API on the CPU: compile, prove with self-verification,
 marshal and export; tampered proofs and wrong witnesses rejected; BSB22
 commitments; explicit blinding sources; the unique-rows guard of the
-prover's scatters.  Byte parity with the JAX prover is in
-tests/test_torch_prove.py."""
+prover's scatters; the top-level names the reference exports.  Byte parity
+with the JAX prover is in tests/test_torch_prove.py."""
 
 import dataclasses
 import random
@@ -10,6 +10,7 @@ import random
 import pytest
 import torch
 
+import algoplonk_tpu as ap
 import algoplonk_tpu_torch as apt
 from algoplonk_tpu_torch.frontend import witness as witness_mod
 from algoplonk_tpu_torch.plonk import verify as V
@@ -103,3 +104,30 @@ def test_random_blinding_source_is_explicit(port_pyth):
         assert V.verify(port_pyth.vk, proof, PUBLIC)
         blobs.append(marshal_proof(apt.BN254, proof))
     assert blobs[0] == blobs[1]
+
+
+@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
+def test_test_only_setup_names_the_reference_setup(curve):
+    assert apt.test_only_setup(getattr(apt, curve)).name == \
+        ap.test_only_setup(getattr(ap, curve)).name
+    assert apt.test_only_setup(getattr(apt, curve)) in apt.SetupName
+
+
+def test_verified_proof_built_as_the_reference_builds_it(port_pyth):
+    """VerifiedProof(proof, witness, curve), as the reference's API and batch
+    prover build it; phase_seconds defaults to empty."""
+    prover = Prover(port_pyth.pk, port_pyth.ccs, rng=False)
+    wit = witness_mod.solve(port_pyth.ccs, TPyth(**ASSIGN), commitment_solver=prover.bsb_solver)
+    proof = prover.prove(wit)
+    vp = apt.VerifiedProof(proof, wit, apt.BN254)
+    assert vp.phase_seconds == {}
+    assert vp.marshal_proof() == marshal_proof(apt.BN254, proof)
+    assert vp.marshal_public_inputs() == b"".join(v.to_bytes(32, "big") for v in PUBLIC)
+
+
+def test_exports_the_reference_api():
+    """Every name of the reference's __all__ but ContractType, which waits
+    for the port of the verifier codegen."""
+    assert set(ap.__all__) - {"ContractType"} <= set(apt.__all__)
+    for name in apt.__all__:
+        assert hasattr(apt, name), name

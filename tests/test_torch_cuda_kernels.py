@@ -1,7 +1,8 @@
 """The CUDA kernels on the GPU, word for word against their plain PyTorch
-versions: the four MSM kernels K1-K4 (csrc/msm_kernels.cu) at W = 8 (BN254)
-and W = 12 (BLS12-381), K1 on a commit-sized table and K2 at every thread
-count per lane, K5-K8 (csrc/curve_kernels.cu) on both curves and
+versions: the MSM kernels K1-K4 (csrc/msm_kernels.cu) at W = 8 (BN254)
+and W = 12 (BLS12-381), K1 on a commit-sized table, K2 at every thread
+count per lane, K3's window scan and phase-4 entries at the window sizes
+of the MSM, K5-K8 (csrc/curve_kernels.cu) on both curves and
 every field, and the NTT stage kernel K9 (csrc/ntt_kernels.cu); then the
 device MSM, the four-step transform and small proofs against host arithmetic
 and the CPU.
@@ -144,6 +145,51 @@ def test_msm_kernels_at_w12(bls_setup, kernel):
         run_and_compare("canon", lambda: ck.canon(ops, x), lambda: ck.plain_canon(ops, x))
 
 
+@pytest.mark.parametrize("E", [1, 64, 257, 513, 1024])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_k3_window_scan(cuda_device, curve, E):
+    """K3's scan over 3 windows of E lanes plus padding, with p + p and
+    p + (-p) neighbours in round 1."""
+    c = apt.fields.params.CURVES[curve]
+    ops = curve_ops(c, cuda_device)
+    table = ops.encode_affine(sample_points(random.Random(20), c, 31) + [None])
+    gen = torch.Generator().manual_seed(21 + E)
+    nwin = 3
+    x = random_projective(ops, gen, table, nwin * E + 77)
+    if E > 4:
+        x[:, :, E + 1] = x[:, :, E]                              # doubling
+        x[:, :, 2 * E + 1] = x[:, :, 2 * E]
+        x[1, :, 2 * E + 1] = ops.f.neg(x[1, :, 2 * E].contiguous())  # cancellation
+    run_and_compare("jac_add_window_scan", lambda: ck.jac_add_window_scan(ops, x, nwin, E),
+                    lambda: ck.plain_jac_add_window_scan(ops, x, nwin, E))
+
+
+@pytest.mark.parametrize("nw,c", [(24, 11), (5, 4), (2, 12), (3, 1)],
+                         ids=["D1024", "D8", "D2048", "D1"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_k3_window_combine(cuda_device, curve, nw, c):
+    """K3's phase 4 at the commit's 24 windows of D = 1024, at D = 8 and at
+    the widest and narrowest windows the wrapper takes, with a doubling and
+    a cancellation in the P[e_d] add (window 1's P[e_D] is the identity)
+    and an identity lane."""
+    cp = apt.fields.params.CURVES[curve]
+    ops = curve_ops(cp, cuda_device)
+    table = ops.encode_affine(sample_points(random.Random(22), cp, 31) + [None])
+    gen = torch.Generator().manual_seed(23 + c)
+    D = 1 << (c - 1)
+    B = M._pad_lanes(nw * (D + 1))
+    base = random_projective(ops, gen, table, B)
+    in_block = random_projective(ops, gen, table, B)
+    in_block[:, :, 0] = base[:, :, 0]                            # doubling
+    top = D + 1 + D                                              # window 1, lane D
+    in_block[:, :, top] = base[:, :, top]
+    in_block[1, :, top] = ops.f.neg(base[1, :, top].contiguous())   # cancellation
+    base[:, :, 3] = in_block[:, :, 3] = ck.inf_lm(ops, 1)[:, :, 0]
+    run_and_compare("window_combine",
+                    lambda: ck.window_combine(ops, base, in_block, nw, c),
+                    lambda: ck.plain_window_combine(ops, base, in_block, nw, c))
+
+
 @pytest.mark.parametrize("T", ck.SCAN_THREADS)
 @pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
 def test_k2_every_thread_count(monkeypatch, cuda_device, curve, T):
@@ -232,6 +278,12 @@ def test_wrappers_check_inputs(setup):
         ck.jac_add(ops, p, p[:, :, :-1].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         ck.canon(ops, p.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="windows"):
+        ck.jac_add_window_scan(ops, p, 1, 1025)
+    with pytest.raises(ValueError, match="windows"):
+        ck.window_combine(ops, p, p, 1, 13)
+    with pytest.raises(ValueError, match="windows"):
+        ck.window_combine(ops, p, p, 2, 10)           # 2 windows of 513 > 1000 lanes
 
 
 def test_device_msm_two_level(cuda_device):
@@ -245,6 +297,34 @@ def test_device_msm_two_level(cuda_device):
     ck.reset_launch_counts()
     got = ctx.msm_to_affine_int(ctx.ops.encode_affine(pts), ctx.fr.encode(scalars), kind="mont")
     assert all(ck.LAUNCHES[k] > 0 for k in ck.MSM_KERNELS), ck.LAUNCHES
+    assert got == M.host_msm(BN254, pts, scalars)
+
+
+def test_device_msm_chunk_sum(monkeypatch, cuda_device):
+    """With CHUNK cut to 1,024, 2,600 points run in three pieces on the
+    card; each piece after the first is added to the total by one launch of
+    K3's jac_add, and the MSM equals host Pippenger."""
+    rng = random.Random(6)
+    n = 2600
+    pts = sample_points(rng, BN254, n)
+    scalars = [rng.randrange(BN254.fr.modulus) for _ in range(n)]
+    monkeypatch.setattr(M, "HOST_MSM_MAX", 0)
+    monkeypatch.setattr(M, "CHUNK", 1024)
+    inside = []                    # K3 jac_add launches within each piece
+    real = M.window_sums_scan
+
+    def counted(*a, **kw):
+        before = ck.LAUNCHES["jac_add"]
+        out = real(*a, **kw)
+        inside.append(ck.LAUNCHES["jac_add"] - before)
+        return out
+
+    monkeypatch.setattr(M, "window_sums_scan", counted)
+    ctx = M.msm_ctx(BN254, cuda_device)
+    before = ck.LAUNCHES["jac_add"]
+    got = ctx.msm_to_affine_int(ctx.ops.encode_affine(pts), ctx.fr.encode(scalars), kind="mont")
+    assert len(inside) == 3
+    assert ck.LAUNCHES["jac_add"] - before - sum(inside) == 2
     assert got == M.host_msm(BN254, pts, scalars)
 
 

@@ -1,28 +1,24 @@
-// The four curve and field kernels that no prove path runs, CUDA for sm_90a,
-// bound to Python through a plain C interface (ctypes).
+// The three curve kernels that no prove path runs, CUDA for sm_90a, bound to
+// Python through a plain C interface (ctypes).
 //
 // They replace these Pallas TPU kernels of algoplonk_tpu/ops/curve_pallas.py:
 //   K5 pallas_mixed_add        (:156) -> ap_mixed_add
 //   K6 pallas_mixed_add_signed (:201) -> ap_mixed_add_signed
 //   K7 pallas_jac_add_multi    (:324) -> ap_jac_add_multi
-//   K8 pallas_field_mul        (:447) -> ap_field_mul
+// (K8 pallas_field_mul is field_kernels.cu's.)
 //
-// K5-K7 take the limbs-major [coord, W, B] layout of the MSM kernels
+// They take the limbs-major [coord, W, B] layout of the MSM kernels
 // (lanes.cuh), one lane per thread, and reuse their formulas (curve.cuh): K5
 // and K6 are one step of K1 without the gather, K7 is K2 without the store
-// after every step.  K8 takes the reference's batch-major [N, W] arrays, which
-// the TPU kernel transposes to limbs-major internally; here one thread owns
-// one element and reads its W consecutive words, so no transpose is made.
+// after every step.
 //
 // Every kernel is a template on W.  The file is compiled once for W = 8 and
-// once for W = 12 (K8 thus serves any field: BN254's two, BLS12-381's Fr at
-// 8 words and its Fp at 12), and each object exports its entry points under
-// names that end in its width (lanes.cuh).  What
-// bounds them on the H100 is what bounds K1-K4: 32-bit integer multiplies
-// and, at W = 12, registers.  K5-K7 run the lazy formulas of curve.cuh and
-// store canonical words; K8 is the strict multiply.  A simple kernel that is right is all this file
-// claims; each is held word for word against its plain PyTorch version
-// (algoplonk_tpu_torch/ops/curve_kernels.py).
+// once for W = 12, and each object exports its entry points under names that
+// end in its width (lanes.cuh).  What bounds them on the H100 is what bounds
+// K1-K4: 32-bit integer multiplies and, at W = 12, registers.  They run the
+// lazy formulas of curve.cuh and store canonical words.  A simple kernel that
+// is right is all this file claims; each is held word for word against its
+// plain PyTorch version (algoplonk_tpu_torch/ops/curve_kernels.py).
 //
 // Every entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() so the caller sees a refused launch.
@@ -115,24 +111,6 @@ jac_add_multi_kernel(const uint32_t* __restrict__ acc,
   store_proj<W>(out, a, B, b, cc.f.p);
 }
 
-// K8: a, b [N, W] canonical Montgomery residues -> a b R^-1 mod p [N, W].
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-field_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                 uint32_t* __restrict__ out, int64_t N, ap::FieldConsts<W> fc) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  uint32_t x[W], y[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    x[w] = a[i * W + w];
-    y[w] = b[i * W + w];
-  }
-  ap::mont_mul<W>(x, x, y, fc);
-#pragma unroll
-  for (int w = 0; w < W; ++w) out[i * W + w] = x[w];
-}
-
 }  // namespace
 
 extern "C" {
@@ -169,21 +147,6 @@ int AP_ENTRY(ap_jac_add_multi)(const void* acc, const void* qs, void* out,
                                  (cudaStream_t)stream>>>(
         (const uint32_t*)acc, (const uint32_t*)qs, (uint32_t*)out, B, g, cc);
   return (int)cudaGetLastError();
-}
-
-// consts: host pointer to the packed FieldConsts<AP_W> words (p, n0, one).
-int AP_ENTRY(ap_field_mul)(const void* a, const void* b, void* out, int64_t N,
-                           const void* consts, void* stream) {
-  const auto fc = *static_cast<const ap::FieldConsts<AP_W>*>(consts);
-  if (N > 0)
-    field_mul_kernel<AP_W><<<blocks_for(N), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, N, fc);
-  return (int)cudaGetLastError();
-}
-
-// Words of FieldConsts<AP_W>.
-int AP_ENTRY(ap_field_consts_words)() {
-  return (int)(sizeof(ap::FieldConsts<AP_W>) / sizeof(uint32_t));
 }
 
 }  // extern "C"

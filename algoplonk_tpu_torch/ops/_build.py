@@ -3,7 +3,7 @@
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
 process per source and width, all started together) and links them into one
 shared library with a plain C interface, which ctypes loads.  The curve
-sources (``PER_WIDTH``) are compiled once for each word count in ``WIDTHS``
+and field sources (``PER_WIDTH``) are compiled once for each word count in ``WIDTHS``
 with ``-DAP_W=<W>``, and their objects export entry points whose names end
 in ``_w<W>`` (``entry``); the W = 12 builds are the long ones, and this lets
 them run beside the others.  No PyTorch header is
@@ -45,8 +45,8 @@ NVCC_FLAGS = [
 ]
 
 NVCC_STACK_BYTES = 1 << 30
-WIDTHS = (8, 12)   # word counts of the curve kernels: BN254, BLS12-381's Fp
-PER_WIDTH = ("curve_kernels.cu", "msm_kernels.cu")
+WIDTHS = (8, 12)   # word counts of the curve and field kernels: BN254, BLS12-381's Fp
+PER_WIDTH = ("curve_kernels.cu", "field_kernels.cu", "msm_kernels.cu")
 
 _lock = threading.Lock()
 _lib = None
@@ -104,7 +104,8 @@ def _set_signatures(lib) -> None:
         "ap_mixed_add": [vp, vp, vp, i64, vp, vp],
         "ap_mixed_add_signed": [vp, vp, vp, vp, i64, vp, vp],
         "ap_jac_add_multi": [vp, vp, vp, i64, i32, vp, vp],
-        "ap_field_mul": [vp, vp, vp, i64, vp, vp],
+        "ap_field_mul": [vp, vp, vp, i64, i64, i64, i64, i64, i64, vp, vp],
+        "ap_field_add_sub": [vp, vp, vp, i64, i64, i64, i64, i64, i64, i32, vp, vp],
         "ap_field_consts_words": [],
     }
     sigs = {f"{name}_w{w}": argtypes for name, argtypes in per_width.items() for w in WIDTHS}

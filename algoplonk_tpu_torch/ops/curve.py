@@ -1,4 +1,5 @@
-"""Batched G1 arithmetic in plain PyTorch (homogeneous projective).
+"""Batched G1 arithmetic in PyTorch over ``FieldOps`` (homogeneous
+projective).
 
 Counterpart of the reference ``ops/curve.py``: the Renes-Costello-Batina
 (2015) complete formulas for a = 0 short Weierstrass curves, one branch-free
@@ -23,10 +24,16 @@ from .field import FieldOps, field_ops
 
 
 class CurveOps:
-    def __init__(self, curve: CurveParams, device):
+    """G1 arithmetic of one curve on one device, over its base field's
+    ``FieldOps``: on a CUDA device its multiplies and adds are field kernel
+    launches; ``plain=True`` gives the twin over the plain field ops, which
+    the curve kernels' plain versions use."""
+
+    def __init__(self, curve: CurveParams, device, plain: bool = False):
         self.curve = curve
         self.device = torch.device(device)
-        self.f: FieldOps = field_ops(curve.fp, device)
+        self.plain = plain
+        self.f: FieldOps = field_ops(curve.fp, device, plain)
         self.wf = word_field(curve.fp)
         self.W = self.wf.W
         self.b3_mont = self._enc([3 * curve.b % curve.fp.modulus])[0]
@@ -34,6 +41,10 @@ class CurveOps:
 
     def _enc(self, ints) -> torch.Tensor:
         return torch.from_numpy(ints_to_mont_words(ints, self.wf)).to(self.device)
+
+    def as_plain(self) -> "CurveOps":
+        """This curve's twin with the kernels off (itself if it is one)."""
+        return self if self.plain else curve_ops(self.curve, self.device, plain=True)
 
     # ------------------------------------------------------------ converts
 
@@ -184,9 +195,9 @@ class CurveOps:
 
 
 @functools.lru_cache(maxsize=None)
-def _curve_ops(curve: CurveParams, device: str) -> CurveOps:
-    return CurveOps(curve, device)
+def _curve_ops(curve: CurveParams, device: str, plain: bool) -> CurveOps:
+    return CurveOps(curve, device, plain)
 
 
-def curve_ops(curve: CurveParams, device="cuda") -> CurveOps:
-    return _curve_ops(curve, str(torch.device(device)))
+def curve_ops(curve: CurveParams, device="cuda", plain: bool = False) -> CurveOps:
+    return _curve_ops(curve, str(torch.device(device)), plain)

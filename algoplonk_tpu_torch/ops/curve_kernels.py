@@ -1,5 +1,5 @@
-"""Wrappers of the curve and field kernels (csrc/msm_kernels.cu,
-csrc/curve_kernels.cu), each beside its plain PyTorch version.
+"""Wrappers of the curve kernels (csrc/msm_kernels.cu, csrc/curve_kernels.cu),
+each beside its plain PyTorch version.
 
 Counterparts of the reference ``ops/curve_pallas.py`` factories:
 
@@ -15,8 +15,10 @@ Counterparts of the reference ``ops/curve_pallas.py`` factories:
   K5    ``mixed_add``               ``pallas_mixed_add``              :156
   K6    ``mixed_add_signed``        ``pallas_mixed_add_signed``       :201
   K7    ``jac_add_multi``           ``pallas_jac_add_multi``          :324
-  K8    ``field_mul``               ``pallas_field_mul``              :447
   ====  ==========================  =======================================
+
+K8 ``field_mul`` (``pallas_field_mul`` :447) is on the prove path, under
+every ``FieldOps.mul`` of a CUDA device: ops/field_kernels.py.
 
 K1-K3 are the MSM's (ops/msm.py).  Besides one complete add per lane, K3
 has an entry for each chain of adds the MSM builds from it, each one launch
@@ -26,11 +28,10 @@ P[e_d], the tree sum over d, D P[e_D] by doublings, minus the sum).  Their
 plain versions run the chain a round at a time, each round one add over all
 lanes rolled into place, which the kernels follow word for word.  Every
 curve kernel stores canonical words, so the MSM needs no K4; K4 serves,
-with K5-K8, only the kernel-test path, as in the reference, whose MSM does
-not call K5-K8 either.  Every curve kernel
-takes limbs-major ``[coord, W, B]`` int32 (lane axis last), as the TPU
-kernels take it; K8 takes batch-major ``[N, W]``.  Each is built for W = 8
-(BN254, BLS12-381's Fr) and W = 12 (BLS12-381's Fp).
+with K5-K7, only the kernel-test path, as in the reference, whose MSM does
+not call K5-K7 either.  Every curve kernel takes limbs-major
+``[coord, W, B]`` int32 (lane axis last), as the TPU kernels take it, and
+is built for W = 8 (BN254) and W = 12 (BLS12-381's Fp).
 
 The curve kernels run a lazy field core (values below 2p, made canonical at
 the store), valid only for a field with 4p < R; ``check_lazy_headroom``
@@ -40,9 +41,11 @@ re-associates the scan; its plain version takes the same T and follows the
 same association, so the two stay equal word for word.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises, with no fallback.  Each wrapper counts its kernel launches
-in ``LAUNCHES`` (by kernel) and ``LAUNCHES_BY_WIDTH`` (by kernel and W);
-plain calls are not counted.
+kernel or raises, with no fallback.  The plain versions compute on the
+curve's plain twin (``CurveOps.as_plain``), whose field ops are plain torch,
+so a plain version launches no kernel on any device.  Each wrapper counts
+its kernel launches in ``LAUNCHES`` (by kernel) and ``LAUNCHES_BY_WIDTH``
+(by kernel and W); plain calls are not counted.
 """
 
 from __future__ import annotations
@@ -55,14 +58,14 @@ import torch
 from ..fields.words import WordField, ints_to_words
 from ._build import WIDTHS, check_tensor, entry, raise_on, stream_of
 from .curve import CurveOps
-from .field import FieldOps
+from .field_kernels import field_consts
 
 SIGN_SHIFT = 26  # bit of a packed member index carrying the digit sign
 ROW_MASK = (1 << SIGN_SHIFT) - 1
 
 MSM_KERNELS = ("mixed_add_signed_multi", "jac_add_multi_scan", "jac_add",
                "jac_add_window_scan", "window_combine")
-OFF_PATH_KERNELS = ("canon", "mixed_add", "mixed_add_signed", "jac_add_multi", "field_mul")
+OFF_PATH_KERNELS = ("canon", "mixed_add", "mixed_add_signed", "jac_add_multi")
 KERNELS = MSM_KERNELS + OFF_PATH_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 LAUNCHES_BY_WIDTH = dict.fromkeys(((k, w) for k in KERNELS for w in WIDTHS), 0)
@@ -92,6 +95,7 @@ def _lm(x_bm):
 
 
 def plain_mixed_add_signed_multi(ops: CurveOps, acc, pts_flat, packed):
+    ops = ops.as_plain()
     W = ops.W
     rows = (packed & ROW_MASK).clamp(max=pts_flat.shape[0] - 1).long()
     neg = (packed >> SIGN_SHIFT) == 1
@@ -128,6 +132,7 @@ def plain_jac_add_multi_scan(ops: CurveOps, acc, qs, T: int | None = None):
     partial sums are shifted up by one with acc in front and scanned
     Kogge-Stone (y[s] <- y[s - d] + y[s]), and each thread rescans its steps
     from its carry-in.  T = 1 is the sequential scan."""
+    ops = ops.as_plain()
     g = qs.shape[0] // 3
     T = scan_threads(acc.shape[-1], g) if T is None else T
     if g % T:
@@ -154,11 +159,11 @@ def plain_jac_add_multi_scan(ops: CurveOps, acc, qs, T: int | None = None):
 
 
 def plain_jac_add(ops: CurveOps, p, q):
-    return _lm(ops.jac_add(_bm(p), _bm(q)))
+    return _lm(ops.as_plain().jac_add(_bm(p), _bm(q)))
 
 
 def plain_canon(ops: CurveOps, x):
-    f = ops.f
+    f = ops.as_plain().f
     return f.reduce(f.mul(x.transpose(1, 2), f.one)).transpose(1, 2).contiguous()
 
 
@@ -196,6 +201,7 @@ def plain_window_combine(ops: CurveOps, base, in_block, nw: int, c: int):
     w * (D + 1) + d, D = 2^(c-1)), the rolled tree sum over d < D (only
     lane d = 0 of each window is read), both made canonical, D P[e_D] by
     c - 1 doublings, minus the sum -> [nw, 3, W]."""
+    ops = ops.as_plain()
     D = 1 << (c - 1)
     p_e = plain_jac_add(ops, base, in_block)
     tree = p_e
@@ -215,43 +221,27 @@ def plain_window_combine(ops: CurveOps, base, in_block, nw: int, c: int):
 
 
 def plain_mixed_add(ops: CurveOps, acc, pts):
-    return _lm(ops.jac_add_affine(_bm(acc), _bm(pts)))
+    return _lm(ops.as_plain().jac_add_affine(_bm(acc), _bm(pts)))
 
 
 def plain_mixed_add_signed(ops: CurveOps, acc, pts, neg):
+    ops = ops.as_plain()
     p = _bm(pts)
     y = ops.f.select(neg[0] != 0, ops.f.neg(p[:, 1]), p[:, 1])
     return _lm(ops.jac_add_affine(_bm(acc), torch.stack([p[:, 0], y], dim=1)))
 
 
 def plain_jac_add_multi(ops: CurveOps, acc, qs):
+    ops = ops.as_plain()
     a = _bm(acc)
     for k in range(qs.shape[0] // 3):
         a = ops.jac_add(a, _bm(qs[3 * k : 3 * k + 3]))
     return _lm(a)
 
 
-def plain_field_mul(f: FieldOps, a, b):
-    return f.mul(a, b)
-
-
 # ------------------------------------------------------------------ kernels
 
 _CONSTS: dict = {}
-
-
-def field_consts(wf: WordField):
-    """The packed FieldConsts<W> words (p, n0, one) in host memory."""
-    key = ("field", wf.modulus)
-    buf = _CONSTS.get(key)
-    if buf is None:
-        words = np.concatenate([
-            ints_to_words([wf.modulus], wf.W)[0],
-            np.asarray([wf.n0], np.uint32).view(np.int32),
-            ints_to_words([wf.r], wf.W)[0],
-        ])
-        buf = _CONSTS[key] = (ctypes.c_int32 * words.size)(*words.tolist())
-    return buf
 
 
 def check_lazy_headroom(wf: WordField) -> None:
@@ -475,22 +465,4 @@ def jac_add_multi(ops: CurveOps, acc, qs):
     )
     raise_on(rc, "jac_add_multi")
     _count("jac_add_multi", W)
-    return out
-
-
-def field_mul(f: FieldOps, a, b):
-    """K8: strict Montgomery product of a, b [N, W] (canonical residues,
-    batch-major) -> [N, W]."""
-    if a.device.type == "cpu":
-        return plain_field_mul(f, a, b)
-    W = f.W
-    N = a.shape[0]
-    check_tensor("a", a, (N, W))
-    check_tensor("b", b, (N, W))
-    out = torch.empty_like(a)
-    rc = _kernel("field_mul", W)(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), N, field_consts(f.wf), stream_of(a)
-    )
-    raise_on(rc, "field_mul")
-    _count("field_mul", W)
     return out

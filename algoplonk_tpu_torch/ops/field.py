@@ -1,11 +1,19 @@
-"""Batched modular field arithmetic in plain PyTorch.
+"""Batched modular field arithmetic: CUDA kernels on the card, plain PyTorch
+elsewhere.
 
-Counterpart of the reference ``ops/field.py``.  There these ops are XLA, not
-Pallas, so here they stay plain torch on every device; the CUDA kernels carry
-their own inlined field core (``csrc/field.cuh``).
+Counterpart of the reference ``ops/field.py``.  There these ops are XLA,
+which fuses them on the TPU; here each torch op would be a launch of its own
+(about 380 for one plain multiply), so on a CUDA device ``FieldOps`` sends
+``mul`` to K8 ``field_mul`` and ``add``, ``sub`` and ``neg`` to
+``field_add_sub`` (``ops/field_kernels.py``, ``csrc/field_kernels.cu``), one
+launch each, with no fallback.  The module-level ``plain_mul``,
+``plain_add``, ``plain_sub`` and ``plain_neg`` are their plain versions, on
+every device: a CPU ``FieldOps`` runs them, and so does the twin that
+``field_ops(fp, device, plain=True)`` gives, which every kernel's plain
+version computes with, so that no plain reference launches a kernel.
 
 Elements are ``[..., W]`` int32 words of canonical Montgomery residues
-(``fields/words.py``).  Inside each op a word splits into two 16-bit digits
+(``fields/words.py``).  Inside each plain op a word splits into two 16-bit digits
 held in int64, so every column sum of a digit product is exact: the product
 of two digits is below 2^32 and a column adds at most 2W of them.  The
 structure follows the reference: column products from one broadcast outer
@@ -15,7 +23,7 @@ coarse Montgomery REDC.  Because the Montgomery radix is the port's
 R = 2^(32 W), outputs are word-for-word comparable with the kernels.
 
 Operands are broadcast against each other, so a single element ``[W]``
-combines with a batch ``[N, W]``.
+combines with a batch ``[N, W]``; the kernels take the same operands.
 """
 
 from __future__ import annotations
@@ -111,15 +119,62 @@ def _sub_borrow(a: torch.Tensor, b: torch.Tensor):
     return (d - _shift_up(c.to(d.dtype), 1)) & _DM, c[..., -1]
 
 
-class FieldOps:
-    """Batched arithmetic in one prime field, on one device."""
+def plain_add(f: "FieldOps", a, b):
+    """a + b mod p, canonical (the plain version of ``field_add_sub``'s add).
+    Canonical sums stay below 2p < R, so the dropped carry is zero."""
+    return _from_digits(f._cond_sub_p(_ks_carry(_to_digits(a) + _to_digits(b))))
 
-    def __init__(self, fp: FieldParams, device):
+
+def plain_sub(f: "FieldOps", a, b):
+    """a - b mod p, canonical (the plain version of ``field_add_sub``'s sub)."""
+    diff, borrow = _sub_borrow(*torch.broadcast_tensors(_to_digits(a), _to_digits(b)))
+    plus_p = _ks_carry(diff + f._p)
+    return _from_digits(torch.where(borrow.unsqueeze(-1), plus_p, diff))
+
+
+def plain_neg(f: "FieldOps", a):
+    """-a mod p (the plain version of ``field_add_sub``'s neg)."""
+    return plain_sub(f, torch.zeros_like(a), a)
+
+
+def plain_mul(f: "FieldOps", a, b):
+    """Montgomery product a b R^-1 mod p, canonical (the plain version of K8
+    ``field_mul``; coarse REDC, as the reference).
+
+    T = a b as 2K column sums; m = (T mod R)(-p^-1) mod R with relaxed
+    digits, so its value may exceed R by a hair; s = T + m p is then a
+    multiple of R below R * 1.5p, its relaxed low half is worth exactly
+    0 or R, and its high half plus that carry is s / R < 2p.  With one
+    operand anywhere below R and the other below p, s / R < 2p still holds
+    unless m takes its hair (m mod R < R / 2^16) while T > R p (1 - 2^-16)."""
+    K = 2 * f.W
+    ad, bd = torch.broadcast_tensors(_to_digits(a), _to_digits(b))
+    cols = _cols(ad, bd)
+    t_low = _relax(cols[..., :K], 3)
+    m = _relax(_cols(t_low, f._np.expand_as(t_low))[..., :K], 3)
+    s = _relax(_cols(m, f._p.expand_as(m)) + cols, 3)
+    c_out = (s[..., :K] != 0).any(dim=-1).to(s.dtype)
+    hi = s[..., K:].clone()
+    hi[..., 0] += c_out
+    return _from_digits(f._cond_sub_p(_ks_carry(hi)))
+
+
+class FieldOps:
+    """Batched arithmetic in one prime field, on one device.
+
+    On a CUDA device ``mul``, ``add``, ``sub`` and ``neg`` (and everything
+    built on them) launch K8 ``field_mul`` and ``field_add_sub``
+    (``ops/field_kernels.py``), or raise; elsewhere, and on the twin made
+    with ``plain=True``, they run ``plain_mul``, ``plain_add``,
+    ``plain_sub`` and ``plain_neg``.  The choice is made once, here."""
+
+    def __init__(self, fp: FieldParams, device, plain: bool = False):
         self.fp = fp
         self.wf: WordField = word_field(fp)
         self.W = self.wf.W
         self.device = torch.device(device)
         self.modulus = fp.modulus
+        self.plain = plain
 
         def digits(v: int) -> torch.Tensor:
             return _to_digits(self._words([v]))[0]
@@ -130,9 +185,20 @@ class FieldOps:
         self.zero = torch.zeros(self.W, dtype=torch.int32, device=self.device)
         self._r2 = self._words([self.wf.r2])[0]
         self._unit = self._words([1])[0]                # the integer 1 (R^-1)
+        if plain or self.device.type != "cuda":
+            self._mul, self._add, self._sub, self._neg = plain_mul, plain_add, plain_sub, plain_neg
+        else:
+            from . import field_kernels as fk   # imports this module: not at the top
+
+            self._mul, self._add, self._sub, self._neg = (
+                fk.field_mul, fk.field_add, fk.field_sub, fk.field_neg)
 
     def _words(self, ints) -> torch.Tensor:
         return torch.from_numpy(ints_to_words(ints, self.W)).to(self.device)
+
+    def as_plain(self) -> "FieldOps":
+        """This field's twin with the kernels off (itself if it is one)."""
+        return self if self.plain else field_ops(self.fp, self.device, plain=True)
 
     # ------------------------------------------------------------ helpers
 
@@ -141,42 +207,24 @@ class FieldOps:
         return torch.where(borrow.unsqueeze(-1), d, diff)
 
     def reduce(self, a):
-        """One conditional subtraction of p: words below 2p -> canonical."""
+        """One conditional subtraction of p: words below 2p -> canonical.
+        Plain torch on every device (only K4's plain version calls it)."""
         return _from_digits(self._cond_sub_p(_to_digits(a)))
 
     # ---------------------------------------------------------------- ops
 
     def add(self, a, b):
-        # canonical sums stay below 2p < R, so the dropped carry is zero
-        return _from_digits(
-            self._cond_sub_p(_ks_carry(_to_digits(a) + _to_digits(b)))
-        )
+        return self._add(self, a, b)
 
     def sub(self, a, b):
-        diff, borrow = _sub_borrow(*torch.broadcast_tensors(_to_digits(a), _to_digits(b)))
-        plus_p = _ks_carry(diff + self._p)
-        return _from_digits(torch.where(borrow.unsqueeze(-1), plus_p, diff))
+        return self._sub(self, a, b)
 
     def neg(self, a):
-        return self.sub(torch.zeros_like(a), a)
+        return self._neg(self, a)
 
     def mul(self, a, b):
-        """Montgomery product a b R^-1 mod p (coarse REDC, as the reference).
-
-        T = a b as 2K column sums; m = (T mod R)(-p^-1) mod R with relaxed
-        digits, so its value may exceed R by a hair; s = T + m p is then a
-        multiple of R below R * 1.5p, its relaxed low half is worth exactly
-        0 or R, and its high half plus that carry is s / R < 2p."""
-        K = 2 * self.W
-        ad, bd = torch.broadcast_tensors(_to_digits(a), _to_digits(b))
-        cols = _cols(ad, bd)
-        t_low = _relax(cols[..., :K], 3)
-        m = _relax(_cols(t_low, self._np.expand_as(t_low))[..., :K], 3)
-        s = _relax(_cols(m, self._p.expand_as(m)) + cols, 3)
-        c_out = (s[..., :K] != 0).any(dim=-1).to(s.dtype)
-        hi = s[..., K:].clone()
-        hi[..., 0] += c_out
-        return _from_digits(self._cond_sub_p(_ks_carry(hi)))
+        """Montgomery product a b R^-1 mod p."""
+        return self._mul(self, a, b)
 
     def square(self, a):
         return self.mul(a, a)
@@ -230,9 +278,11 @@ class FieldOps:
 
 
 @functools.lru_cache(maxsize=None)
-def _field_ops(fp: FieldParams, device: str) -> FieldOps:
-    return FieldOps(fp, device)
+def _field_ops(fp: FieldParams, device: str, plain: bool) -> FieldOps:
+    return FieldOps(fp, device, plain)
 
 
-def field_ops(fp: FieldParams, device="cuda") -> FieldOps:
-    return _field_ops(fp, str(torch.device(device)))
+def field_ops(fp: FieldParams, device="cuda", plain: bool = False) -> FieldOps:
+    """The cached ``FieldOps`` of ``fp`` on ``device``; ``plain=True`` gives
+    its twin with the kernels off, which the kernels' plain versions use."""
+    return _field_ops(fp, str(torch.device(device)), plain)

@@ -17,7 +17,10 @@ prefix sums computed block-decomposed with static shapes.
 
 This is the reference's Pallas branch; the wrappers in ``curve_kernels``
 launch the CUDA kernels for CUDA tensors and run their plain versions for
-CPU tensors, so one pipeline serves both.  The sort and searchsorted are
+CPU tensors, so one pipeline serves both.  On a plain twin of the curve
+(``msm_ctx(curve, device, plain=True)``) the pipeline calls the plain
+versions themselves, and its field ops are plain too: the MSM's plain path,
+which launches no kernel on any device.  The sort and searchsorted are
 ``torch.sort`` and ``torch.searchsorted``; every index the reference clips
 is clipped here too (a gather out of range raises in torch, and is a device
 assert on CUDA).  The cross-window fold runs on host ints.
@@ -32,6 +35,7 @@ import torch
 
 from ..fields.params import CurveParams
 from ..fields.words import mont_words_to_ints
+from . import curve_kernels as ck
 from .curve import CurveOps, curve_ops
 from .curve_kernels import (
     SIGN_SHIFT,
@@ -126,6 +130,17 @@ def _no_mark(name: str) -> None:
     pass
 
 
+def _curve_fns(ops: CurveOps):
+    """K1, K2, K3, K3's scan and K3's phase 4 for ``ops``: the kernel
+    wrappers (looked up at call time, so that tests can wrap them), or on a
+    plain twin their plain versions."""
+    if ops.plain:
+        return (ck.plain_mixed_add_signed_multi, ck.plain_jac_add_multi_scan,
+                ck.plain_jac_add, ck.plain_jac_add_window_scan, ck.plain_window_combine)
+    return (mixed_add_signed_multi, jac_add_multi_scan, jac_add, jac_add_window_scan,
+            window_combine)
+
+
 def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
                      k_block: int = K_BLOCK, mark=None):
     """[N+1, 2, W] infinity-padded affine points + [nw, N] signed digits
@@ -138,6 +153,7 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
     'gathers', 'phase 4'); a caller that synchronises there can time the
     parts."""
     mark = mark or _no_mark
+    k1, k2, k3, k3_scan, k3_phase4 = _curve_fns(ops)
     dev = points_pad.device
     W = ops.W
     i32 = dict(dtype=torch.int32, device=dev)
@@ -178,9 +194,7 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
             dim=1,
         )
         for j in range(0, nsteps, FUSE_STEPS):
-            acc = mixed_add_signed_multi(
-                ops, acc, pts_flat, flat[j : j + FUSE_STEPS].contiguous()
-            )
+            acc = k1(ops, acc, pts_flat, flat[j : j + FUSE_STEPS].contiguous())
         return acc
 
     # ---- phase 1: in-block reduction -> block sums [3, W, w1p]
@@ -214,7 +228,7 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
     if not two_level:
         # ---- phase 2, one level: inclusive scan over the block sums of
         # each window (lane w*nblk + b)
-        scan = jac_add_window_scan(ops, block_sums, nw, nblk)
+        scan = k3_scan(ops, block_sums, nw, nblk)
         mark("K3 scan")
         scan_bm = torch.cat([scan.permute(2, 0, 1), inf_row_bm])
         lane = w_ids * nblk + prev.clamp(0, nblk - 1)
@@ -231,12 +245,12 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
             bs5.movedim(4, 0).reshape(S, 3, W, wsb), (0, wsbp - wsb)
         ).reshape(S * 3, W, wsbp).contiguous()
         mark("gathers")
-        is_scan = jac_add_multi_scan(ops, inf_lm(ops, wsbp), qs)
+        is_scan = k2(ops, inf_lm(ops, wsbp), qs)
         super_sums = is_scan[-3:]
         mark("K2")
 
         # 2b: inclusive scan over the super sums of each window
-        super_scan = jac_add_window_scan(ops, super_sums.contiguous(), nw, nsb)
+        super_scan = k3_scan(ops, super_sums.contiguous(), nw, nsb)
         mark("K3 scan")
 
         # base = super_scan[esb_prev - 1] + is_scan[esb_prev][r2]
@@ -255,7 +269,7 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
         idx = torch.cat([idx, torch.full((w2p - w2,), wsbp * S, **i32)])
         rescan = tbl[idx.long()].T.reshape(3, W, w2p).contiguous()
         mark("gathers")
-        base_lm = jac_add(ops, base_lm, rescan)
+        base_lm = k3(ops, base_lm, rescan)
         mark("K3 add")
 
     # ---- phase 3: in-block point rescan up to e_d
@@ -273,7 +287,7 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
 
     # ---- phase 4: P[e_d] = base + in_block, S_w = D * P[e_D] - sum_{d<D}
     # P[e_d]
-    out = window_combine(ops, base_lm, in_block, nw, c)      # [nw, 3, W]
+    out = k3_phase4(ops, base_lm, in_block, nw, c)           # [nw, 3, W]
     mark("phase 4")
     return out
 
@@ -332,10 +346,13 @@ def host_msm(curve: CurveParams, points: list, scalars: list):
 
 
 class MsmCtx:
-    def __init__(self, curve: CurveParams, device):
+    """The MSM of one curve on one device; ``plain=True`` runs it on the
+    plain twins of the curve and scalar field (the plain path)."""
+
+    def __init__(self, curve: CurveParams, device, plain: bool = False):
         self.curve = curve
-        self.ops: CurveOps = curve_ops(curve, device)
-        self.fr: FieldOps = field_ops(curve.fr, device)
+        self.ops: CurveOps = curve_ops(curve, device, plain)
+        self.fr: FieldOps = field_ops(curve.fr, device, plain)
 
     def _host_fold(self, window_sums, c: int = WINDOW_BITS) -> tuple | None:
         """[nw, 3, W] Montgomery projective window sums -> host affine int
@@ -412,8 +429,9 @@ class MsmCtx:
             mark("digits")
             ws = window_sums_scan(self.ops, pts_pad, digs.contiguous(), c, mark=mark)
             if total is not None:   # add the earlier pieces' window sums (K3)
-                ws = jac_add(self.ops, total.permute(1, 2, 0).contiguous(),
-                             ws.permute(1, 2, 0).contiguous()).permute(2, 0, 1)
+                ws = _curve_fns(self.ops)[2](
+                    self.ops, total.permute(1, 2, 0).contiguous(),
+                    ws.permute(1, 2, 0).contiguous()).permute(2, 0, 1)
             total = ws
         folded = self._host_fold(total, c)
         mark("host fold")
@@ -421,9 +439,9 @@ class MsmCtx:
 
 
 @functools.lru_cache(maxsize=None)
-def _msm_ctx(curve: CurveParams, device: str) -> MsmCtx:
-    return MsmCtx(curve, device)
+def _msm_ctx(curve: CurveParams, device: str, plain: bool) -> MsmCtx:
+    return MsmCtx(curve, device, plain)
 
 
-def msm_ctx(curve: CurveParams, device="cuda") -> MsmCtx:
-    return _msm_ctx(curve, str(torch.device(device)))
+def msm_ctx(curve: CurveParams, device="cuda", plain: bool = False) -> MsmCtx:
+    return _msm_ctx(curve, str(torch.device(device)), plain)

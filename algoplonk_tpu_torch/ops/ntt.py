@@ -2,9 +2,10 @@
 
 Counterpart of the reference ``ops/ntt.py`` (NttPlan :43-155): the domain is
 an ``[n, W]`` word tensor and each butterfly stage is one batched field
-multiply plus an add and a sub over n/2 elements.  Plain torch: in the
+multiply plus an add and a sub over n/2 elements, which on the card are
+three field kernel launches (``FieldOps``, ops/field_kernels.py).  In the
 reference these stages are XLA too (the fused Pallas stage kernel serves only
-the limbs-major quotient at 2^17 and above, which this port has not taken).
+the limbs-major quotient, ops/ntt_kernels.py here).
 
 Twiddles derive from ``domain_generator``, which depends on the gnark-compat
 mode, so plans are cached per mode as well as per curve, size and device.

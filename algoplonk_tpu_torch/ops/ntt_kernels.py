@@ -31,7 +31,8 @@ plain torch permutation copy.  The reference splits a pass into several
 launches at ``_T_SMALL`` to bound Mosaic compile time; the port does not.
 
 Its ``LmOps`` (jitted limbs-major elementwise ops) have no counterpart:
-``FieldOps`` (ops/field.py) already works on any ``[..., W]``.
+``FieldOps`` (ops/field.py) already works on any ``[..., W]``, and on the
+card its ops are the field kernels.
 
 A CPU tensor takes ``plain_ntt_pass``; a CUDA tensor launches K9 or raises,
 with no fallback.  ``LAUNCHES`` counts kernel launches only.  Plans are
@@ -48,7 +49,7 @@ import torch
 
 from ..fields.params import CURVES, domain_generator, gnark_compat_enabled
 from ._build import check_tensor, raise_on, stream_of
-from .curve_kernels import field_consts
+from .field_kernels import field_consts
 from .field import FieldOps, field_ops
 from .ntt import power_table
 
@@ -87,7 +88,9 @@ def stage_twiddles(curve_name: str, C: int, inverse: bool) -> list[int]:
 def plain_ntt_pass(f: FieldOps, x, tw, C: int, inverse: bool, entry=None, exit_=None):
     """K9's stages in PyTorch: every length-C sub-transform of x [N, W],
     forward DIF (halves C/2 .. 1) or inverse DIT (halves 1 .. C/2), output
-    bit-reversed within each sub-transform."""
+    bit-reversed within each sub-transform.  It computes on the field's
+    plain twin, so it launches no kernel on any device."""
+    f = f.as_plain()
     N, W = x.shape
     if entry is not None:
         x = f.mul(x, entry)

@@ -22,7 +22,13 @@ use and caches its test SRS under its own ``.cache/``.
 - With ``--prove``: chip_smoke.py's SquareChain at BN254 2^16 on the test
   SRS and at BLS12-381 2^14 on the Ethereum KZG ceremony, compiled, then
   proved and self-verified twice (``CompiledCircuit.verify``); host
-  seconds, with each prove's rounds and its MSMs' share.
+  seconds, with each prove's rounds and its MSMs' share.  Then one more
+  warm BN254 prove under ``torch.profiler``: its CUDA kernel launches and
+  the device's busy share (chip_smoke.py's ``profile_device``, which reads
+  any tree's prove).
+
+The measuring code is this file's and the chip_smoke.py beside it, whatever
+``--root`` names, so that both trees are measured by the same code.
 
 Prints the card's name and power limit, one JSON line per measurement, and
 a last JSON line with all of them.
@@ -31,6 +37,7 @@ a last JSON line with all of them.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import random
@@ -38,12 +45,24 @@ import subprocess
 import sys
 import time
 
-import chip_smoke as cs   # this file's directory; it imports the port lazily
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _chip_smoke():
+    """The chip_smoke.py beside this file (it imports the port lazily, so
+    it measures the tree that ``--root`` puts first on the path)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _chip_smoke()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--root", default=HERE)
     ap.add_argument("--prove", action="store_true", help="also compile and prove")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -121,6 +140,11 @@ def main() -> int:
                        compile_s=t_compile, prove_verify_s=time.perf_counter() - t0,
                        msm_s=msm_t.seconds, msm_calls=msm_t.calls,
                        phases=vp.phase_seconds)
+            if curve is apt.BN254:
+                n_kernels, by_type, busy, wall = cs.profile_device(
+                    torch, lambda: cc.verify(SquareChain(x=x, y=y)))
+                record("prove_trace", curve=curve.name, log_n=log_n, kernel_launches=n_kernels,
+                       device_events=by_type, device_busy=busy, prove_verify_s=wall)
             del cc, vp
     print(json.dumps({"root": root, "card": card, "results": results}), flush=True)
     return 0

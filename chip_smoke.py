@@ -23,19 +23,31 @@ result line):
    at the phase-1 and phase-3 widths; K2 is held to its plain version at
    every thread count per lane T and timed at every T at the phase-2a
    widths of the three commits (6,272 and 12,416 lanes at W = 8, 1,664 at
-   W = 12); K8 on 2^16 random residues of
-   each of the four fields; and the NTT stage kernel K9 on random residues
+   W = 12); the field kernels K8 (field_mul) and field_add_sub (add, sub,
+   neg) on each of the four fields at the prove's shapes (2^18 contiguous
+   rows, K8 also with one multiplicand arbitrary below R, held to host
+   integers; 256 rows against one element; an NTT stage's strided halves
+   against its strided twiddle slice), each timed on the device with its
+   inputs read from HBM (the L2 flushed before each launch) beside its
+   bound, and the host microseconds of one field_mul call; and the NTT
+   stage kernel K9 on random residues
    at the four pass shapes of the 2^17 path's four-step transforms of 2^19
    (C = 512 and 1024, forward and inverse, with and without the fused entry
-   and exit multiplies);
+   and exit multiplies).  Every plain version must launch no kernel (all
+   launch counters are read around each plain call);
 2. the 2^16 path, with the launch counts zeroed just before it: compile the
    2^16-constraint SquareChain circuit on BN254 with the test SRS on the
    GPU, prove and self-verify it (CompiledCircuit.verify, batch-major
    quotient), marshal; the proof must be 24 words, a flipped public input
-   must be rejected, and every MSM kernel (K1, K2, K3 and its scan and
-   phase-4 entries) must have launched; the prove's MSM share is printed;
+   must be rejected, every MSM kernel (K1, K2, K3 and its scan and
+   phase-4 entries) must have launched, and both field kernels in the prove
+   itself; the prove's MSM share, the field kernels' launches per prove and
+   the operands they copied are printed.  Then one warm prove + self-verify
+   under torch.profiler: its CUDA kernel launches and the device's busy
+   share;
 3. one commit-sized MSM (65,539 points of that SRS): the kernel path must
-   equal the plain path, and on a 4,096-point prefix the host Pippenger;
+   equal the plain path (``msm_ctx(..., plain=True)``, which must launch
+   nothing), and on a 4,096-point prefix the host Pippenger;
    then its split (sort, gathers, K1, K2, K3's scan, add and phase 4, host
    fold) from synchronised marks;
 4. a small circuit proved on the GPU (device MSM forced) must give the same
@@ -46,13 +58,14 @@ result line):
    then, with the counts zeroed, the 2^17 SquareChain (the cap of the
    production BN254 setup) is compiled, proved through the four-step
    quotient and self-verified, with the same checks as phase 2 and every
-   kernel, K9 included, launched; two more proves of the same witness with
+   kernel, K9 and the field kernels included, launched; two more proves of the same witness with
    Prover(rng=False), forced through each quotient path, must give equal
    bytes;
 6. the BLS12-381 path, with the counts zeroed just before it: the 2^14
    SquareChain (y in BLS12-381's Fr) compiled on the Ethereum KZG ceremony,
    proved and self-verified; the proof must be 33 words, a flipped public
-   input rejected, and the MSM kernels launched at W = 12.  Then a small BLS12-381
+   input rejected, the MSM kernels launched at W = 12 and the field kernels
+   in the prove.  Then a small BLS12-381
    circuit with the device MSM forced gives the CPU's proof bytes through
    both quotient paths (the four-step one runs K9 on BLS12-381's Fr), and
    an MSM over all 32,768 ceremony points agrees between the kernel path
@@ -69,14 +82,18 @@ result line):
 Output: timings on stdout; before the last line the card's name and power
 limit, then a JSON line of per-kernel numbers: launches from the path that
 runs the kernel (the MSM kernels at W = 8 and K9 from the 2^17 path, the
-MSM kernels at W = 12 from the BLS12-381 path, K4-K8 from the kernel-test
-path), the time of
+MSM kernels at W = 12 from the BLS12-381 path, K4-K7 from the kernel-test
+path, the field kernels from the prove + self-verify of their curve's path,
+or the kernel-test path's for a field that prove does not compute in), the
+time of
 kernel and plain version at phase 1's shapes (K9's ms and plain_ms are the
-sums over its four pass shapes, itemised under "passes"; K1's and K2's other
-shapes are itemised under "shapes"), and the bound at
+sums over its four pass shapes, itemised under "passes"; K1's, K2's and the
+field kernels' other shapes are itemised under "shapes"; the field kernels'
+ms is at 2^18 contiguous rows, inputs from HBM), and the bound at
 those shapes: the larger of the bytes over HBM bandwidth and the 32-bit
 integer multiplies over the card's multiply rate.  No single PyTorch call
-computes any of these functions, so library_ms is null.  The last line is
+computes any of these functions (multi-word modular arithmetic), so
+library_ms is null.  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -97,13 +114,14 @@ BLS_MSM_POINTS = 1 << 15   # every G1 point of that ceremony
 HOST_PREFIX = 4096         # points checked against the host Pippenger
 MSM_SRC = "algoplonk_tpu_torch/csrc/msm_kernels.cu"
 CURVE_SRC = "algoplonk_tpu_torch/csrc/curve_kernels.cu"
+FIELD_SRC = "algoplonk_tpu_torch/csrc/field_kernels.cu"
 NTT_SRC = "algoplonk_tpu_torch/csrc/ntt_kernels.cu"
 SOURCE = {
     "mixed_add_signed_multi": MSM_SRC, "jac_add_multi_scan": MSM_SRC,
     "jac_add": MSM_SRC, "jac_add_window_scan": MSM_SRC, "window_combine": MSM_SRC,
     "canon": MSM_SRC, "mixed_add": CURVE_SRC,
     "mixed_add_signed": CURVE_SRC, "jac_add_multi": CURVE_SRC,
-    "field_mul": CURVE_SRC, "ntt_pass": NTT_SRC,
+    "field_mul": FIELD_SRC, "field_add_sub": FIELD_SRC, "ntt_pass": NTT_SRC,
 }
 REPLACES = {
     "mixed_add_signed_multi": "algoplonk_tpu/ops/curve_pallas.py:250",
@@ -116,6 +134,8 @@ REPLACES = {
     "mixed_add_signed": "algoplonk_tpu/ops/curve_pallas.py:201",
     "jac_add_multi": "algoplonk_tpu/ops/curve_pallas.py:324",
     "field_mul": "algoplonk_tpu/ops/curve_pallas.py:447",
+    # no TPU kernel: the reference's add/sub/neg are XLA, which fuses them
+    "field_add_sub": "algoplonk_tpu/ops/field.py:237",
     "ntt_pass": "algoplonk_tpu/ops/ntt_pallas.py:129",
 }
 # Montgomery multiplies per lane of one call of each formula, as the kernels
@@ -131,6 +151,55 @@ IMUL_PER_CLK_PER_SM = 64    # 32-bit integer multiply-adds, compute capability 9
 
 def log(*a):
     print(*a, flush=True)
+
+
+L2_FLUSH_BYTES = 3 * 50 * 2**20   # three times the H100's 50 MB L2
+
+
+def device_ms(torch, fn, reps: int, kernel: str, flush=None) -> float:
+    """Mean device milliseconds per call of fn (one launch of ``kernel``, a
+    part of its name) over reps calls after one warm-up, summed from that
+    kernel's own intervals in a torch.profiler trace: the card's time
+    without the host's gaps between launches, which CUDA events around
+    back-to-back launches include.  With ``flush`` (an int32 buffer of
+    L2_FLUSH_BYTES on the card), each call follows a read of the whole
+    buffer, which evicts fn's inputs from the L2: they then come from HBM,
+    as a bytes bound over HBM bandwidth assumes.
+
+    A short trace can lose the records of launches made just after it
+    starts, so the launches begin 20 ms into it; a trace that still lacks
+    some is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            for _ in range(reps):
+                if flush is not None:
+                    flush.sum()
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        spans = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA and kernel in e.name()]
+        if len(spans) == reps:
+            return sum(spans) * 1e-6 / reps
+        log(f"device_ms: {len(spans)} of {reps} {kernel} launches in the trace; again")
+    raise AssertionError(f"expected {reps} {kernel} launches in the trace, found {len(spans)}")
+
+
+def host_seconds(torch, fn, calls: int) -> float:
+    """Host seconds per call of fn over ``calls`` calls, synchronised before
+    and after (the device keeps up with a launch rate of tens of us)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -340,8 +409,7 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=(), scan_E
     def check(name, kern, plain, reps, montmuls, moved, **extra):
         out_k = kern()
         torch.cuda.synchronize()
-        out_p = plain()
-        torch.cuda.synchronize()
+        out_p = plain_launches_nothing(plain, name + suffix)
         diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
         ms = cuda_ms(kern, reps)
         plain_ms = cuda_ms(plain, 1)
@@ -386,7 +454,9 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=(), scan_E
         with forced_threads(T):
             out_k = ck.jac_add_multi_scan(ops, acc2, qs)
         torch.cuda.synchronize()
-        if not torch.equal(out_k, ck.plain_jac_add_multi_scan(ops, acc2, qs, T)):
+        want = plain_launches_nothing(lambda: ck.plain_jac_add_multi_scan(ops, acc2, qs, T),
+                                      "jac_add_multi_scan")
+        if not torch.equal(out_k, want):
             raise AssertionError(f"jac_add_multi_scan{suffix} at T = {T} disagrees with its "
                                  "plain version")
     log(f"jac_add_multi_scan{suffix}: exact at every T in {ck.SCAN_THREADS}")
@@ -478,35 +548,154 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=(), scan_E
     return results
 
 
-def field_mul_phase(torch, apt, bound):
-    """K8 on 2^16 random residues of each field it serves."""
+def launch_counts():
+    """Every kernel launch counter of the port, by kernel."""
     from algoplonk_tpu_torch.ops import curve_kernels as ck
-    from algoplonk_tpu_torch.ops.field import field_ops
+    from algoplonk_tpu_torch.ops import field_kernels as fk
+    from algoplonk_tpu_torch.ops import ntt_kernels as nk
+
+    return {**ck.LAUNCHES, **nk.LAUNCHES, **fk.LAUNCHES}
+
+
+def plain_launches_nothing(fn, what):
+    """Run ``fn`` (a plain version) and fail if any kernel counter moved."""
+    import torch
+
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    if moved:
+        raise AssertionError(f"the plain version of {what} launched kernels: {moved}")
+    return out
+
+
+FIELD_ROWS = 1 << 18   # the largest field op of a prove: the 4n coset at 2^16
+
+
+def field_shapes(torch, f, g):
+    """The operands of the field kernels at the prove's shapes: 2^18
+    contiguous rows (with one multiplicand arbitrary below R), 256 rows
+    against one element (a step of the blocked scans), and an NTT stage's
+    strided halves of a 2^18 coset against its strided twiddle slice (stage
+    half h = 512, ops/ntt.py)."""
+    n, h = FIELD_ROWS, 512
+    a, b = random_residues(torch, f, n, g), random_residues(torch, f, n, g)
+    a[:3] = f.encode([0, 1, f.fp.modulus - 1])
+    arb = torch.randint(-2**31, 2**31, (n, f.W), generator=g, dtype=torch.int64)
+    arb = arb.to(torch.int32).to(f.device)
+    x = random_residues(torch, f, n, g).reshape(n // (2 * h), 2, h, f.W)
+    tw = random_residues(torch, f, n // 2, g)[:: n // (2 * h)][:h]
+    return [(f"{n} rows", a, b), (f"{n} rows, a below R", arb, b),
+            ("256 rows x 1", a[:256], b[7]), (f"ntt halves {n // (2 * h)}x{h}", x[:, 1], tw),
+            (f"ntt u, v {n // (2 * h)}x{h}", x[:, 0], x[:, 1])]
+
+
+def field_phase(torch, apt, bound):
+    """K8 and field_add_sub against their plain versions on each of the four
+    fields at the prove's shapes (``field_shapes``; K8 with one operand
+    arbitrary below R against host integers), each timed on the device with
+    its inputs read from HBM (the L2 flushed before each launch) and left in
+    the L2, beside its bound; every plain call must launch nothing.  Then
+    the host microseconds of one wrapper call (launch included) and of its
+    operand layout alone."""
+    from algoplonk_tpu_torch.ops import field_kernels as fk
+    from algoplonk_tpu_torch.ops._build import stream_of
+    from algoplonk_tpu_torch.ops.field import (field_ops, plain_add, plain_mul, plain_neg,
+                                               plain_sub)
 
     g = torch.Generator(device="cpu").manual_seed(8)
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     results = []
     for curve in (apt.BN254, apt.BLS12_381):
         for fp in (curve.fr, curve.fp):
             f = field_ops(fp, "cuda")
-            a, b = random_residues(torch, f, 1 << 16, g), random_residues(torch, f, 1 << 16, g)
-            a[:3] = f.encode([0, 1, fp.modulus - 1])
-            out_k = ck.field_mul(f, a, b)
-            torch.cuda.synchronize()
-            diff = (out_k.to(torch.int64) - ck.plain_field_mul(f, a, b).to(torch.int64)).abs().max().item()
-            ms = cuda_ms(lambda: ck.field_mul(f, a, b), 50)
-            plain_ms = cuda_ms(lambda: ck.plain_field_mul(f, a, b), 3)
-            bound_ms, bound_by = bound(f.W, a.shape[0], nbytes(a, b, out_k))
-            name = f"field_mul[{fp.name}]"
-            log(f"{name}: exact={diff == 0} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
-            if diff != 0:
-                raise AssertionError(f"{name}: kernel disagrees with its plain version")
-            results.append({"name": name, "route": "cuda", "source": CURVE_SRC,
-                            "replaces": REPLACES["field_mul"], "kernel": "field_mul",
-                            "width": f.W, "field": fp.name, "max_abs_err": diff,
-                            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                            "bound_by": bound_by, "library_ms": None})
+            by_kernel = {"field_mul": [], "field_add_sub": []}
+            worst = 0
+            for shape, a, b in field_shapes(torch, f, g):
+                ops = [("field_mul", "mul", fk.field_mul, plain_mul, (a, b))]
+                if "below R" not in shape:
+                    ops += [("field_add_sub", "add", fk.field_add, plain_add, (a, b)),
+                            ("field_add_sub", "sub", fk.field_sub, plain_sub, (a, b)),
+                            ("field_add_sub", "neg", fk.field_neg, plain_neg, (a,))]
+                for kname, op, kern, plain, xs in ops:
+                    out_k = kern(f, *xs)
+                    torch.cuda.synchronize()
+                    out_p = plain_launches_nothing(lambda: plain(f, *xs), f"{kname} {op}")
+                    if "below R" in shape:
+                        # plain_mul's coarse REDC is exact for canonical
+                        # operands only: K8's wider contract is held to
+                        # host integers
+                        out_p = host_mont_mul(torch, f, *xs)
+                    diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
+                    if diff != 0 or out_k.shape != out_p.shape:
+                        raise AssertionError(f"{kname} {op} [{fp.name}] {shape}: the kernel "
+                                             "disagrees with its reference")
+                    worst = max(worst, diff)
+                    name = f"{kname}_kernel"
+                    ms = device_ms(torch, lambda: kern(f, *xs), 20, name, flush)
+                    warm_ms = device_ms(torch, lambda: kern(f, *xs), 20, name)
+                    events_ms = cuda_ms(lambda: kern(f, *xs), 50)
+                    plain_ms = cuda_ms(lambda: plain(f, *xs), 2)
+                    rows = out_k.numel() // f.W
+                    bound_ms, bound_by = bound(f.W, rows if kname == "field_mul" else 0,
+                                               field_bytes(xs, out_k))
+                    log(f"{kname} {op} [{fp.name}] {shape}: exact, kernel {ms:.4f} ms on the "
+                        f"device from HBM ({warm_ms:.4f} ms with its inputs left in the L2, "
+                        f"{events_ms:.4f} ms a launch back to back), plain {plain_ms:.2f} ms, "
+                        f"bound {bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.2f}x")
+                    by_kernel[kname].append({"op": op, "shape": shape, "rows": rows, "ms": ms,
+                                             "warm_ms": warm_ms, "events_ms": events_ms,
+                                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                             "bound_by": bound_by})
+            # host cost of one call at the scans' size, which sets the launch
+            # rate: the whole call, then three of its parts alone
+            a, b = random_residues(torch, f, 256, g), random_residues(torch, f, 1, g)[0]
+            host = {"call": lambda: fk.field_mul(f, a, b), "layout": lambda: fk.layout((a, b)),
+                    "empty": lambda: torch.empty(a.shape, dtype=torch.int32, device=a.device),
+                    "stream": lambda: stream_of(a)}
+            host_us = {k: host_seconds(torch, fn, 2000) * 1e6 for k, fn in host.items()}
+            t_call, t_layout = host_us["call"], host_us["layout"]
+            log(f"field_mul [{fp.name}] host us per call (256 rows x 1): "
+                + ", ".join(f"{k} {v:.1f}" for k, v in host_us.items()))
+            for kname, shapes in by_kernel.items():
+                main = shapes[0]
+                results.append({"name": f"{kname}[{fp.name}]", "route": "cuda",
+                                "source": SOURCE[kname], "replaces": REPLACES[kname],
+                                "kernel": kname, "width": f.W, "field": fp.name,
+                                "max_abs_err": worst, "ms": main["ms"],
+                                "plain_ms": main["plain_ms"],
+                                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                                "library_ms": None, "shapes": shapes,
+                                **({"host_us": host_us} if kname == "field_mul" else {})})
     return results
+
+
+def host_mont_mul(torch, f, a, b):
+    """a b R^-1 mod p of broadcast operands from host integers, as int32
+    words of the broadcast shape on a's device."""
+    from algoplonk_tpu_torch.fields.words import ints_to_words, words_to_ints
+
+    a, b = torch.broadcast_tensors(a, b)
+    xs = words_to_ints(a.reshape(-1, f.W).cpu().numpy())
+    ys = words_to_ints(b.reshape(-1, f.W).cpu().numpy())
+    p = f.modulus
+    r_inv = pow(1 << (32 * f.W), -1, p)
+    out = ints_to_words([x * y * r_inv % p for x, y in zip(xs, ys)], f.W)
+    return torch.from_numpy(out).reshape(a.shape).to(a.device)
+
+
+def field_bytes(xs, out) -> int:
+    """Bytes a field op must move: the rows of each operand that are
+    distinct in memory read once (a broadcast element once, not once per
+    row), the output written once."""
+    total = nbytes(out)
+    for x in xs:
+        rows = 1
+        for size, stride in zip(x.shape[:-1], x.stride()[:-1]):
+            rows *= size if stride else 1
+        total += rows * x.shape[-1] * x.element_size()
+    return total
 
 
 def ntt_kernel_phase(torch, bound):
@@ -530,7 +719,7 @@ def ntt_kernel_phase(torch, bound):
         plain = lambda: nk.plain_ntt_pass(f, x, tw, C, inverse, **kw)   # noqa: E731
         out_k = kern()
         torch.cuda.synchronize()
-        out_p = plain()
+        out_p = plain_launches_nothing(plain, "ntt_pass")
         diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
         ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 1)
         montmuls = N // 2 * (C.bit_length() - 1) + (2 * N if fused else 0)
@@ -565,6 +754,7 @@ def kernel_test_path(torch, curve, lanes: int = 1024):
     from algoplonk_tpu_torch.fields.words import words_to_ints
     from algoplonk_tpu_torch.host import fp as hfp
     from algoplonk_tpu_torch.ops import curve_kernels as ck
+    from algoplonk_tpu_torch.ops import field_kernels as fk
     from algoplonk_tpu_torch.ops.curve import curve_ops
     from algoplonk_tpu_torch.ops.field import field_ops
 
@@ -617,7 +807,7 @@ def kernel_test_path(torch, curve, lanes: int = 1024):
         f = field_ops(fp, "cuda")
         xs = [rng.randrange(fp.modulus) for _ in range(lanes - 2)] + [0, fp.modulus - 1]
         ys = [rng.randrange(fp.modulus) for _ in range(lanes - 2)] + [fp.modulus - 1, 0]
-        ok &= f.decode(ck.field_mul(f, f.encode(xs), f.encode(ys))) == [
+        ok &= f.decode(fk.field_mul(f, f.encode(xs), f.encode(ys))) == [
             x * y % fp.modulus for x, y in zip(xs, ys)]
     return ok
 
@@ -643,28 +833,44 @@ def four_step_check(torch):
     same = torch.equal(ev, nat[perm])
     back = torch.equal(fsp.intt_scr(ev, coset_shift=shift), coeffs)
     log(f"coset transform of 2^{log_n}: four-step {t_fs:.3f} s (tables included), "
-        f"radix-2 plain {t_r2:.3f} s (plan included); equal: {same}; round trip: {back}")
+        f"radix-2 plan {t_r2:.3f} s (plan included); equal: {same}; round trip: {back}")
     if not (same and back):
         raise AssertionError("four-step coset transform disagrees with the radix-2 plan")
 
 
-class plain_kernels:
-    """Route the MSM pipeline through the plain versions on CUDA tensors."""
+def profile_device(torch, fn):
+    """Run fn once under torch.profiler (CUDA activity only) and read the
+    trace: (CUDA kernel launches, device events by type, device busy share,
+    wall seconds).  Device events named Memcpy or Memset are copies and
+    sets, every other one a kernel.  The busy share is the union of the
+    device events' intervals over the wall time of the call."""
+    from torch.profiler import ProfilerActivity, profile
 
-    def __enter__(self):
-        from algoplonk_tpu_torch.ops import curve_kernels as ck
-        from algoplonk_tpu_torch.ops import msm as M
-
-        self.saved = {k: getattr(M, k) for k in ck.MSM_KERNELS}
-        for k in ck.MSM_KERNELS:
-            setattr(M, k, getattr(ck, "plain_" + k))
-        return self
-
-    def __exit__(self, *exc):
-        from algoplonk_tpu_torch.ops import msm as M
-
-        for k, v in self.saved.items():
-            setattr(M, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_type, spans = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name()
+        kind = ("memcpy" if name.startswith("Memcpy") else
+                "memset" if name.startswith("Memset") else "kernel")
+        by_type[kind] = by_type.get(kind, 0) + 1
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    spans.sort()
+    busy, end = 0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    return by_type.get("kernel", 0), by_type, busy * 1e-9 / wall, wall
 
 
 class Split:
@@ -742,6 +948,7 @@ def main() -> int:
     from algoplonk_tpu_torch.frontend import witness as witness_mod
     from algoplonk_tpu_torch.ops import _build
     from algoplonk_tpu_torch.ops import curve_kernels as ck
+    from algoplonk_tpu_torch.ops import field_kernels as fk
     from algoplonk_tpu_torch.ops import msm as M
     from algoplonk_tpu_torch.ops import ntt_kernels as nk
     from algoplonk_tpu_torch.plonk import verify as V
@@ -768,9 +975,7 @@ def main() -> int:
     def reset_counts():
         ck.reset_launch_counts()
         nk.reset_launch_counts()
-
-    def counts():
-        return {**ck.LAUNCHES, **nk.LAUNCHES}
+        fk.reset_launch_counts()
 
     # ---- phase 1: build + kernels vs plain
     t0 = time.perf_counter()
@@ -781,17 +986,21 @@ def main() -> int:
                            k2_lanes=(commit_widths((1 << LM_LOG_N) + 3)[2],),
                            scan_E=(commit_windows((1 << LM_LOG_N) + 3)[1],))
     kernels += kernel_phase(torch, rng, apt.BLS12_381, (1 << BLS_LOG_N) + 3, bound, "[w12]")
-    kernels += field_mul_phase(torch, apt, bound)
+    kernels += field_phase(torch, apt, bound)
     kernels.append(ntt_kernel_phase(torch, bound))
     for k in kernels:   # K5-K7 at both widths carry the width in the name
         if k["kernel"] in ("mixed_add", "mixed_add_signed", "jac_add_multi") and k["width"] == 8:
             k["name"] += "[w8]"
 
+    field_paths = {}   # curve -> field launches (in its first prove, in its whole path)
+
     def drive(curve, setup, log_n, expect):
         """Compile, prove + self-verify and check the 2^log_n SquareChain
         with the launch counts zeroed just before it; every kernel named in
-        ``expect`` must have launched.  Returns (cc, circuit, x, y, launches
-        by kernel and width)."""
+        ``expect`` and both field kernels must have launched, the field
+        kernels in the prove itself.  Returns (cc, circuit, x, y, launches
+        by kernel and width, launches by kernel).  The field kernels'
+        launches by field go to ``field_paths``."""
         r = curve.fr.modulus
         x = 0xA1607 % r
         SquareChain, chain = square_chain(apt, log_n)
@@ -802,15 +1011,20 @@ def main() -> int:
         t0 = time.perf_counter()
         cc = apt.compile(SquareChain, curve, setup, device=dev)
         t_compile = time.perf_counter() - t0
-        at_compile = dict(ck.LAUNCHES_BY_WIDTH)
+        at_compile = {**ck.LAUNCHES_BY_WIDTH, **fk.LAUNCHES_BY_WIDTH}
+        field_at_compile, copies_at_compile = dict(fk.LAUNCHES_BY_FIELD), fk.COPIES
         t0 = time.perf_counter()
         with msm_timer() as msm_t:
             vp = cc.verify(SquareChain(x=x, y=y))
         t_verify = time.perf_counter() - t0
         blob = vp.marshal_proof()
-        launches = counts()
-        by_width = {k: v for k, v in ck.LAUNCHES_BY_WIDTH.items() if v}
+        launches = launch_counts()
+        by_width = {k: v for k, v in {**ck.LAUNCHES_BY_WIDTH, **fk.LAUNCHES_BY_WIDTH}.items()
+                    if v}
         in_prove = {k: v - at_compile[k] for k, v in by_width.items() if v > at_compile[k]}
+        field_in_prove = {k: v - field_at_compile.get(k, 0)
+                          for k, v in fk.LAUNCHES_BY_FIELD.items()}
+        field_paths.setdefault(curve.name, (field_in_prove, dict(fk.LAUNCHES_BY_FIELD)))
         peak = torch.cuda.max_memory_allocated()
         log(f"{tag} compile (circuit + SRS + setup, {setup.name}) at n = {cc.pk.n}: "
             f"{t_compile:.2f} s")
@@ -820,6 +1034,11 @@ def main() -> int:
             f"{msm_t.seconds / t_verify:.1%} of prove + self-verify")
         log(f"{tag} launches: {launches}; by width: {by_width}; by width in prove + "
             f"self-verify alone: {in_prove}")
+        per_prove = {k: sum(v for (kk, _), v in field_in_prove.items() if kk == k)
+                     for k in fk.KERNELS}
+        log(f"{tag} field kernel launches per prove + self-verify: {per_prove}, by field "
+            f"{field_in_prove}; operands copied in the prove: "
+            f"{fk.COPIES - copies_at_compile}, in compile: {copies_at_compile}")
         log(f"{tag} peak device memory: {peak / 2**30:.3f} GiB")
         if cc.pk.n != 1 << log_n:
             raise AssertionError(f"domain {cc.pk.n} != 2^{log_n}")
@@ -828,12 +1047,20 @@ def main() -> int:
         if V.verify(cc.vk, vp.proof, [(y + 1) % r]):
             raise AssertionError("a flipped public input was accepted")
         missing = [k for k in expect if launches[k] == 0]
+        missing += [k for k in fk.KERNELS if per_prove[k] == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the {tag} path: {missing}")
-        return cc, SquareChain, x, y, dict(ck.LAUNCHES_BY_WIDTH), launches
+        return cc, SquareChain, x, y, {**ck.LAUNCHES_BY_WIDTH, **fk.LAUNCHES_BY_WIDTH}, launches
 
-    # ---- phase 2: the 2^16 path
-    cc = drive(apt.BN254, apt.SetupName.TEST_ONLY_BN254, LOG_N, ck.MSM_KERNELS)[0]
+    # ---- phase 2: the 2^16 path, then one warm prove of it under the profiler
+    cc, SquareChain, x, y, _, _ = drive(
+        apt.BN254, apt.SetupName.TEST_ONLY_BN254, LOG_N, ck.MSM_KERNELS)
+    n_kernels, by_type, busy, wall = profile_device(torch, lambda: cc.verify(SquareChain(x=x, y=y)))
+    log(f"[bn254 2^{LOG_N}] warm prove + self-verify under torch.profiler: {wall:.2f} s, "
+        f"{n_kernels} CUDA kernel launches, device busy {busy:.1%}; device events by type: "
+        f"{by_type}")
+    if n_kernels == 0:
+        raise AssertionError("the profiler saw no CUDA kernel in a prove")
 
     # ---- phase 3: one commit-sized MSM, kernels vs plain; a prefix vs host
     r = apt.BN254.fr.modulus
@@ -846,9 +1073,10 @@ def main() -> int:
     t0 = time.perf_counter()
     got = ctx.msm_to_affine_int(pts, mont, kind="mont")
     t_kernel = time.perf_counter() - t0
+    plain_ctx = M.msm_ctx(apt.BN254, dev, plain=True)
     t0 = time.perf_counter()
-    with plain_kernels():
-        plain = ctx.msm_to_affine_int(pts, mont, kind="mont")
+    plain = plain_launches_nothing(
+        lambda: plain_ctx.msm_to_affine_int(pts, mont, kind="mont"), "the MSM")
     t_plain = time.perf_counter() - t0
     pre = ctx.msm_to_affine_int(pts[:HOST_PREFIX], mont[:HOST_PREFIX], kind="mont")
     t0 = time.perf_counter()
@@ -962,9 +1190,10 @@ def main() -> int:
             secs[f"kernel fuse {fuse}"] = time.perf_counter() - t0
     finally:
         M.FUSE_STEPS = default_fuse
+    plain_ctx = M.msm_ctx(bls, dev, plain=True)
     t0 = time.perf_counter()
-    with plain_kernels():
-        results["plain"] = ctx.msm_to_affine_int(pts, mont, kind="mont")
+    results["plain"] = plain_launches_nothing(
+        lambda: plain_ctx.msm_to_affine_int(pts, mont, kind="mont"), "the MSM")
     secs["plain"] = time.perf_counter() - t0
     pre = ctx.msm_to_affine_int(pts[:HOST_PREFIX], mont[:HOST_PREFIX], kind="mont", window_bits=11)
     t0 = time.perf_counter()
@@ -983,12 +1212,14 @@ def main() -> int:
               f"[bls12_381] {n_commit}-point commit")
 
     # ---- phase 7: the kernel-test path of K4-K8
-    off_path = {}
+    off_path, off_path_field = {}, {}
     for curve in (apt.BN254, bls):
         reset_counts()
         t0 = time.perf_counter()
         ok = kernel_test_path(torch, curve)
-        launched = {k: v for k, v in ck.LAUNCHES_BY_WIDTH.items() if v}
+        off_path_field.update(fk.LAUNCHES_BY_FIELD)
+        launched = {k: v for k, v in {**ck.LAUNCHES_BY_WIDTH, **fk.LAUNCHES_BY_WIDTH}.items()
+                    if v}
         log(f"[{curve.name}] kernel-test path of K4-K8: {time.perf_counter() - t0:.2f} s, "
             f"equal to host: {ok}; launches: {launched}")
         if not ok:
@@ -997,16 +1228,28 @@ def main() -> int:
             off_path[curve.name, key] = v
     for k in kernels:
         if k["kernel"] in ck.OFF_PATH_KERNELS:
-            curve = k.get("field", "bn254_x").rsplit("_", 1)[0] if k["kernel"] == "field_mul" \
-                else ("bn254" if k["width"] == 8 else "bls12_381")
+            curve = "bn254" if k["width"] == 8 else "bls12_381"
             k["launches"] = off_path.get((curve, (k["kernel"], k["width"])), 0)
+        elif k["kernel"] in fk.KERNELS:
+            # the prove of its curve's first path (BN254 2^16, BLS12-381
+            # 2^14); a field that prove does not compute in counts that
+            # path's compile (BN254's Fp: the test SRS), or else the
+            # kernel-test path (BLS12-381's Fp: the MSM's curve arithmetic
+            # is K1-K3 and the ceremony's points are decoded on the host)
+            key = (k["kernel"], k["field"])
+            in_prove, on_path = field_paths[k["field"].rsplit("_", 1)[0]]
+            for where, got in (("prove", in_prove), ("compile", on_path),
+                               ("kernel-test path", off_path_field)):
+                if got.get(key):
+                    k["launches"], k["launches_on"] = got[key], where
+                    break
     unlaunched = [k["name"] for k in kernels if not k.get("launches")]
     if unlaunched:
         raise AssertionError(f"kernels never launched on their path: {unlaunched}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "depth", "work_adds",
-            "rounds_ms", "passes", "shapes")
+            "rounds_ms", "passes", "shapes", "host_us", "launches_on")
     line = [{key: k[key] for key in keys if key in k} for k in kernels]
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -2,10 +2,12 @@
 versions: the MSM kernels K1-K4 (csrc/msm_kernels.cu) at W = 8 (BN254)
 and W = 12 (BLS12-381), K1 on a commit-sized table, K2 at every thread
 count per lane, K3's window scan and phase-4 entries at the window sizes
-of the MSM, K5-K8 (csrc/curve_kernels.cu) on both curves and
-every field, and the NTT stage kernel K9 (csrc/ntt_kernels.cu); then the
-device MSM, the four-step transform and small proofs against host arithmetic
-and the CPU.
+of the MSM, K5-K7 (csrc/curve_kernels.cu) on both curves, K8 and
+field_add_sub (csrc/field_kernels.cu) on every field at every operand
+layout the prover gives them, and the NTT stage kernel K9
+(csrc/ntt_kernels.cu); then ``FieldOps`` on the card against the CPU's, the
+device MSM, the four-step transform and small proofs against host
+arithmetic and the CPU.  Every plain version is checked to launch nothing.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no jax,
 so it runs on a machine without it:
@@ -19,13 +21,15 @@ import pytest
 import torch
 
 import algoplonk_tpu_torch as apt
+from algoplonk_tpu_torch.fields.words import ints_to_words, words_to_ints
 from algoplonk_tpu_torch.frontend import witness as witness_mod
 from algoplonk_tpu_torch.host import fp as hfp
 from algoplonk_tpu_torch.ops import curve_kernels as ck
+from algoplonk_tpu_torch.ops import field_kernels as fk
 from algoplonk_tpu_torch.ops import msm as M
 from algoplonk_tpu_torch.ops import ntt_kernels as nk
 from algoplonk_tpu_torch.ops.curve import curve_ops
-from algoplonk_tpu_torch.ops.field import field_ops
+from algoplonk_tpu_torch.ops.field import field_ops, plain_add, plain_mul, plain_neg, plain_sub
 from algoplonk_tpu_torch.ops.ntt import ntt_plan
 from algoplonk_tpu_torch.plonk import verify as V
 from algoplonk_tpu_torch.plonk.marshal import marshal_proof
@@ -53,13 +57,22 @@ def setup(cuda_device):
     return ops, table, torch.Generator().manual_seed(2)
 
 
+def all_launches():
+    return {**ck.LAUNCHES, **nk.LAUNCHES, **fk.LAUNCHES}
+
+
 def run_and_compare(name, kernel, plain):
-    before = ck.LAUNCHES[name]
+    """One launch of kernel ``name``, equal word for word to its plain
+    version, which launches no kernel at all."""
+    before = all_launches()
     got = kernel()
     torch.cuda.synchronize()
-    assert ck.LAUNCHES[name] == before + 1
-    assert torch.equal(got, plain())
-    assert ck.LAUNCHES[name] == before + 1
+    after = all_launches()
+    assert after[name] == before[name] + 1
+    want = plain()
+    torch.cuda.synchronize()
+    assert all_launches() == after, "the plain version launched a kernel"
+    assert torch.equal(got, want)
 
 
 def test_k1_mixed_add_signed_multi(setup):
@@ -266,7 +279,157 @@ def test_k8_field_mul(cuda_device, field):
     n = 3000
     vals = [rng.randrange(f.modulus) for _ in range(2 * n - 4)] + [0, 1, f.modulus - 1, 2]
     a, b = f.encode(vals[:n]), f.encode(vals[n:])
-    run_and_compare("field_mul", lambda: ck.field_mul(f, a, b), lambda: ck.plain_field_mul(f, a, b))
+    run_and_compare("field_mul", lambda: fk.field_mul(f, a, b), lambda: plain_mul(f, a, b))
+
+
+FIELDS = ["bn254_fr", "bn254_fp", "bls12_381_fr", "bls12_381_fp"]
+FIELD_ROWS = [1, 255, 256, 257, 1 << 18]
+
+
+def field_named(name, device):
+    c = apt.fields.params.CURVES[name.rsplit("_", 1)[0]]
+    return field_ops(c.fr if name.endswith("fr") else c.fp, device)
+
+
+def canonical_words(f, n, gen):
+    """n canonical residues [n, W] on f's device: random words with the top
+    word cut below p's top bit, and 0, 1 and p - 1 in front."""
+    x = torch.randint(-(2**31), 2**31, (n, f.W), generator=gen, dtype=torch.int64)
+    x[:, -1] &= (1 << (f.fp.nbits - 1 - 32 * (f.W - 1))) - 1
+    x = x.to(torch.int32).to(f.device)
+    edges = f.encode([0, 1, f.modulus - 1])[: n]
+    x[: edges.shape[0]] = edges
+    return x
+
+
+def any_words(f, n, gen):
+    """n arbitrary W-word values [n, W] (below R, not reduced)."""
+    x = torch.randint(-(2**31), 2**31, (n, f.W), generator=gen, dtype=torch.int64)
+    return x.to(torch.int32).to(f.device)
+
+
+LAYOUTS = ["contiguous", "element-batch", "batch-element", "ntt-halves", "ntt-twiddles",
+           "every-other-row", "k-n-by-1-n", "nb-1-by-1-b", "point-coordinates",
+           "words-not-contiguous", "three-batch-dims", "unaligned-rows", "unaligned-element"]
+
+
+def unaligned(x):
+    """x's values in a contiguous view one word past the start of its
+    buffer, so that no row of it is 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
+
+
+def operand_layout(f, n, gen, layout):
+    """Operands a, b of one layout the prover gives the field ops, with
+    about n rows ("words-not-contiguous", "three-batch-dims" and the
+    unaligned ones are those the wrapper must copy)."""
+    W = f.W
+
+    def r(m):
+        return canonical_words(f, m, gen)
+
+    h = min(n & -n, 64)
+    stage = r(2 * n).reshape(n // h, 2, h, W)
+    pts = r(3 * n).reshape(n, 3, W)
+    rows = r(2 * n)
+    return {
+        "contiguous": lambda: (r(n), r(n)),
+        "element-batch": lambda: (r(1)[0], r(n)),
+        "batch-element": lambda: (r(n), r(1)[0]),
+        "ntt-halves": lambda: (stage[:, 0], stage[:, 1]),
+        "ntt-twiddles": lambda: (stage[:, 1], r(3 * h)[::3]),
+        "every-other-row": lambda: (rows[0::2], rows[1::2]),
+        "k-n-by-1-n": lambda: (r(3 * n).reshape(3, n, W), r(n)[None]),
+        "nb-1-by-1-b": lambda: (r(n)[:, None], r(3)[None]),
+        "point-coordinates": lambda: (pts[:, 0], pts[:, 2]),
+        "words-not-contiguous": lambda: (r(n).T.contiguous().T, r(n)),
+        "three-batch-dims": lambda: (r(6 * n).reshape(2, 3, n, W).transpose(1, 2),
+                                     r(3)[None, None]),
+        "unaligned-rows": lambda: (unaligned(r(n)), r(n)),
+        "unaligned-element": lambda: (r(n), unaligned(r(1)[0])),
+    }[layout]()
+
+
+def host_mont_mul(f, a, b):
+    """a b R^-1 mod p of broadcast operands, from host integers -> int32
+    words of the broadcast shape on a's device."""
+    a, b = torch.broadcast_tensors(a, b)
+    xs = words_to_ints(a.reshape(-1, f.W).cpu().numpy())
+    ys = words_to_ints(b.reshape(-1, f.W).cpu().numpy())
+    p = f.modulus
+    r_inv = pow(1 << (32 * f.W), -1, p)
+    out = ints_to_words([x * y * r_inv % p for x, y in zip(xs, ys)], f.W)
+    return torch.from_numpy(out).reshape(a.shape).to(a.device)
+
+
+def check_field_kernel(name, f, kernel, plain, operands):
+    """One launch, the copies ``fk.layout`` finds for ``operands``, and the
+    plain version's words, with no launch in the plain call."""
+    before, copied = all_launches(), fk.COPIES
+    got = kernel()
+    torch.cuda.synchronize()
+    after = all_launches()
+    assert after[name] == before[name] + 1
+    assert fk.COPIES - copied == fk.layout(operands)[-1]
+    want = plain()
+    torch.cuda.synchronize()
+    assert all_launches() == after, "the plain version launched a kernel"
+    assert got.is_contiguous() and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("field", FIELDS)
+def test_field_kernels_by_layout(cuda_device, field, layout):
+    """K8 and field_add_sub (add, sub, neg) against plain_mul, plain_add,
+    plain_sub and plain_neg at 1, 255, 256, 257 and 2^18 rows in one operand
+    layout of the prover's, the edge values 0, 1 and p - 1 among them; K8
+    also with either multiplicand arbitrary below R, against host integers
+    (plain_mul's coarse REDC is exact only for canonical operands)."""
+    f = field_named(field, cuda_device)
+    gen = torch.Generator().manual_seed(len(layout) + f.W)
+    for n in FIELD_ROWS:
+        a, b = operand_layout(f, n, gen, layout)
+        for kname, kern, plain in (("field_mul", fk.field_mul, plain_mul),
+                                   ("field_add_sub", fk.field_add, plain_add),
+                                   ("field_add_sub", fk.field_sub, plain_sub)):
+            check_field_kernel(kname, f, lambda: kern(f, a, b), lambda: plain(f, a, b), (a, b))
+        check_field_kernel("field_add_sub", f, lambda: fk.field_neg(f, a),
+                           lambda: plain_neg(f, a), (a,))
+        arb = any_words(f, a.numel() // f.W, gen).reshape(a.shape)
+        want = host_mont_mul(f, arb, b)
+        check_field_kernel("field_mul", f, lambda: fk.field_mul(f, arb, b),
+                           lambda: want, (arb, b))
+        check_field_kernel("field_mul", f, lambda: fk.field_mul(f, b, arb),
+                           lambda: want, (b, arb))
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_field_ops_on_the_card_equal_the_cpu(cuda_device, field):
+    """FieldOps on a CUDA device launches K8 or field_add_sub for every mul,
+    add, sub and neg, and gives the CPU FieldOps' words for every op built
+    on them."""
+    fg, fc = field_named(field, cuda_device), field_named(field, "cpu")
+    assert not fg.plain and fg.as_plain().plain
+    rng = random.Random(30)
+    p = fg.modulus
+    xs = [0, 1, p - 1, 2] + [rng.randrange(p) for _ in range(300)]
+    ys = [p - 1, 0, 1, p - 2] + [rng.randrange(p) for _ in range(300)]
+    before = dict(fk.LAUNCHES)
+    ag, bg = fg.encode(xs), fg.encode(ys)
+    ac, bc = fc.encode(xs), fc.encode(ys)
+    assert torch.equal(ag.cpu(), ac)
+    for op in ("mul", "add", "sub"):
+        assert torch.equal(getattr(fg, op)(ag, bg).cpu(), getattr(fc, op)(ac, bc)), op
+        assert torch.equal(getattr(fg, op)(ag[5], bg).cpu(), getattr(fc, op)(ac[5], bc)), op
+    for op in ("neg", "square", "inv", "from_mont", "to_mont"):
+        assert torch.equal(getattr(fg, op)(ag).cpu(), getattr(fc, op)(ac)), op
+    assert torch.equal(fg.pow(ag, 0xA1607).cpu(), fc.pow(ac, 0xA1607))
+    assert fg.decode(ag) == fc.decode(ac) == xs
+    assert fk.LAUNCHES["field_mul"] > before["field_mul"]
+    assert fk.LAUNCHES["field_add_sub"] >= before["field_add_sub"] + 4
 
 
 def test_wrappers_check_inputs(setup):

@@ -1,4 +1,5 @@
-"""The plain versions of K5-K8 (algoplonk_tpu_torch/ops/curve_kernels.py)
+"""The plain versions of K5-K8 (algoplonk_tpu_torch/ops/curve_kernels.py and
+field_kernels.py)
 against the JAX package's XLA path, on both curves: the port of
 tests/test_pallas_kernels.py without its interpret mode, which that file
 marks slow.
@@ -26,6 +27,7 @@ from algoplonk_tpu.ops.field import field_ops as jax_field_ops
 from algoplonk_tpu_torch.fields import params as tparams
 from algoplonk_tpu_torch.host import fp as hfp
 from algoplonk_tpu_torch.ops import curve_kernels as ck
+from algoplonk_tpu_torch.ops import field_kernels as fk
 from algoplonk_tpu_torch.ops.curve import curve_ops
 from algoplonk_tpu_torch.ops.field import field_ops
 from torch_parity import field_values, jax_ints, one_torch_thread, port_ints, sample_points  # noqa: F401
@@ -132,7 +134,7 @@ def test_k8_field_mul_matches_xla(field):
     xs = field_values(p, rng, 12) + [0, p - 1]
     ys = list(reversed(field_values(p, rng, 12))) + [p - 1, 0]
     f, jf = field_ops(fp, "cpu"), jax_field_ops(jfp)
-    got = ck.field_mul(f, f.encode(xs), f.encode(ys))
+    got = fk.field_mul(f, f.encode(xs), f.encode(ys))
     assert got.shape == (len(xs), f.W)
     assert f.decode(got) == jf.decode(jf.mul(jf.encode(xs), jf.encode(ys)))
     assert f.decode(got) == [x * y % p for x, y in zip(xs, ys)]
@@ -148,7 +150,9 @@ def test_wrappers_never_fall_back_off_cpu():
     for call in (lambda: ck.mixed_add(ops, acc, pts),
                  lambda: ck.mixed_add_signed(ops, acc, pts, neg),
                  lambda: ck.jac_add_multi(ops, acc, acc),
-                 lambda: ck.field_mul(ops.f, pts[0], pts[0])):
+                 lambda: fk.field_mul(ops.f, pts[0], pts[0]),
+                 lambda: fk.field_add(ops.f, pts[0], pts[0]),
+                 lambda: fk.field_neg(ops.f, pts[0])):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
 
@@ -159,7 +163,7 @@ def test_curve_kernels_built_once_per_width():
     from algoplonk_tpu_torch.ops import _build
 
     units = {name: flags for _, flags, name in _build._units()}
-    for src in ("curve_kernels.cu", "msm_kernels.cu"):
+    for src in ("curve_kernels.cu", "field_kernels.cu", "msm_kernels.cu"):
         for w in (8, 12):
             assert units[f"{src}.w{w}.o"] == [f"-DAP_W={w}"]
     assert units["ntt_kernels.cu.o"] == []

@@ -1,4 +1,4 @@
-"""The four-step NTT of the round-3 quotient, with its stage kernel K9
+"""The four-step NTT of the round-3 quotient, with its pass kernel K9
 (csrc/ntt_kernels.cu) beside the kernel's plain PyTorch version.
 
 Counterpart of the reference ``ops/ntt_pallas.py``:
@@ -26,9 +26,15 @@ exactly as column p of the reference's array.  The transforms are
     T2 -> [(r1, j2)]                           W_i (with 1/n), exit coset C_i
     P2 DIF over j2      -> [(r1, r2)]       T1' -> natural coefficients
 
-where each P is ONE launch of K9 over all log2(C) stages, and each T is a
-plain torch permutation copy.  The reference splits a pass into several
-launches at ``_T_SMALL`` to bound Mosaic compile time; the port does not.
+where each P is ONE launch of K9 over all log2(C) stages, and no T is a
+copy: P1 and P1' read and write the columns of the [n1, n2] array
+(``FourStepPlan.column`` strides: element i of sub-transform j2 at row
+i n2 + j2), which folds T1 and T2 into P1 and T2' and T1' into P1'; P2 and
+P2' are contiguous.  A transform is two launches, and the entry and exit
+tables of P1 and P1' are kept in the column layout too.  The reference
+splits a pass into several launches at ``_T_SMALL`` to bound Mosaic
+compile time; the port does not.  On a field with 4p < R (BN254's Fr) K9
+keeps values below 2p between stages (``lazy_headroom``).
 
 Its ``LmOps`` (jitted limbs-major elementwise ops) have no counterpart:
 ``FieldOps`` (ops/field.py) already works on any ``[..., W]``, and on the
@@ -85,15 +91,38 @@ def stage_twiddles(curve_name: str, C: int, inverse: bool) -> list[int]:
 
 # ------------------------------------------------------------ plain version
 
-def plain_ntt_pass(f: FieldOps, x, tw, C: int, inverse: bool, entry=None, exit_=None):
+def pass_strides(N: int, C: int, strides) -> tuple[int, int]:
+    """(element stride, sub-transform stride) of a pass operand, in
+    elements: None is the contiguous layout (1, C).  Every position
+    i es + s ss (i < C, s < N / C) must lie in [0, N)."""
+    es, ss = (1, C) if strides is None else (int(strides[0]), int(strides[1]))
+    if es < 1 or ss < 1 or (C - 1) * es + (N // C - 1) * ss >= N:
+        raise ValueError(f"ntt_pass: strides {(es, ss)} leave [{N}] for C = {C}")
+    return es, ss
+
+
+def _logical(t, C: int, strides):
+    """The [N / C, C, W] view of storage t in which [s, i] is element i of
+    sub-transform s."""
+    N, W = t.shape
+    es, ss = strides
+    return t.as_strided((N // C, C, W), (ss * W, es * W, 1))
+
+
+def plain_ntt_pass(f: FieldOps, x, tw, C: int, inverse: bool, entry=None, exit_=None, *,
+                   in_strides=None, out_strides=None):
     """K9's stages in PyTorch: every length-C sub-transform of x [N, W],
     forward DIF (halves C/2 .. 1) or inverse DIT (halves 1 .. C/2), output
-    bit-reversed within each sub-transform.  It computes on the field's
-    plain twin, so it launches no kernel on any device."""
+    bit-reversed within each sub-transform; ``in_strides`` (x and entry) and
+    ``out_strides`` (the output and exit) place the sub-transforms, as
+    ``ntt_pass`` takes them.  It computes on the field's plain twin, so it
+    launches no kernel on any device."""
     f = f.as_plain()
     N, W = x.shape
+    ins, outs = pass_strides(N, C, in_strides), pass_strides(N, C, out_strides)
+    x = _logical(x, C, ins).reshape(N, W)
     if entry is not None:
-        x = f.mul(x, entry)
+        x = f.mul(x, _logical(entry, C, ins).reshape(N, W))
     log_c = C.bit_length() - 1
     halves = [1 << s for s in range(log_c)]
     for h in halves if inverse else halves[::-1]:
@@ -107,8 +136,12 @@ def plain_ntt_pass(f: FieldOps, x, tw, C: int, inverse: bool, entry=None, exit_=
             pair = (f.add(u, v), f.mul(f.sub(u, v), w))
         x = torch.stack(pair, dim=1).reshape(N, W)
     if exit_ is not None:
-        x = f.mul(x, exit_)
-    return x
+        x = f.mul(x, _logical(exit_, C, outs).reshape(N, W))
+    if outs == (1, C):
+        return x
+    out = torch.empty_like(x)
+    _logical(out, C, outs).copy_(x.view(N // C, C, W))
+    return out
 
 
 # ------------------------------------------------------------------ kernel
@@ -125,16 +158,28 @@ def _lib(f: FieldOps):
     return lib
 
 
-def ntt_pass(f: FieldOps, x, tw, C: int, inverse: bool, entry=None, exit_=None):
+def lazy_headroom(f: FieldOps) -> bool:
+    """Can K9 keep values below 2p between stages (csrc/field.cuh's lazy
+    ops)?  Only where 4p < R: BN254's Fr, not BLS12-381's."""
+    return 4 * f.wf.modulus < f.wf.R
+
+
+def ntt_pass(f: FieldOps, x, tw, C: int, inverse: bool, entry=None, exit_=None, *,
+             in_strides=None, out_strides=None):
     """K9: all log2(C) stages of the N / C length-C sub-transforms of x
     [N, W], with an optional entry multiply (on load) and exit multiply (on
     store), both [N, W].  tw: [C, W] twiddles from ``stage_twiddles``.
+    ``in_strides`` = (es, ss) puts element i of sub-transform s at row
+    i es + s ss of x and entry, ``out_strides`` likewise for the output
+    and exit (default (1, C), contiguous; ``FourStepPlan`` passes columns).
     Returns a new [N, W] tensor of canonical words."""
     if x.device.type == "cpu":
-        return plain_ntt_pass(f, x, tw, C, inverse, entry, exit_)
+        return plain_ntt_pass(f, x, tw, C, inverse, entry, exit_,
+                              in_strides=in_strides, out_strides=out_strides)
     N, W = x.shape
     if C < 2 or C > MAX_C or C & (C - 1) or N % C:
         raise ValueError(f"ntt_pass: bad sub-transform length {C} for N = {N}")
+    (ies, iss), (oes, oss) = pass_strides(N, C, in_strides), pass_strides(N, C, out_strides)
     check_tensor("x", x, (N, W))
     check_tensor("tw", tw, (C, W))
     ops = [x, tw]
@@ -150,7 +195,8 @@ def ntt_pass(f: FieldOps, x, tw, C: int, inverse: bool, entry=None, exit_=None):
         x.data_ptr(), tw.data_ptr(),
         entry.data_ptr() if entry is not None else None,
         exit_.data_ptr() if exit_ is not None else None,
-        out.data_ptr(), N, C, int(inverse), field_consts(f.wf), stream_of(x),
+        out.data_ptr(), N, C, int(inverse), int(lazy_headroom(f)), ies, iss, oes, oss,
+        field_consts(f.wf), stream_of(x),
     )
     raise_on(rc, "ntt_pass")
     LAUNCHES["ntt_pass"] += 1
@@ -178,6 +224,7 @@ class FourStepPlan:
         self.n1, self.n2 = 1 << self.log_n1, 1 << self.log_n2
         self.r = self.curve.fr.modulus
         self.omega = domain_generator(curve_name, log_n)
+        self.column = (self.n2, 1)   # K9 strides of a column of [n1, n2]
         self._tables: dict = {}
 
     def _table(self, key, build):
@@ -200,41 +247,40 @@ class FourStepPlan:
         )
 
     def _cross_table(self, inverse: bool):
-        """W[a, b] = w^(+-a brev_{n1}(b)) over [n2 rows, n1 cols] as [n, W]
-        (times 1/n when inverse): log2(n1) masked multiplies by host-built
-        P_t[a] = w^(+-a 2^t), as the reference builds it."""
+        """W[a, b] = w^(+-a brev_{n1}(b)) at row b n2 + a of [n, W] (the
+        column layout of P1's output and of the inverse's P1 input; times
+        1/n when inverse): log2(n1) masked multiplies by host-built P_t[a]
+        = w^(+-a 2^t), as the reference builds it."""
 
         def build():
             f, r, n1, n2 = self.f, self.r, self.n1, self.n2
             w = pow(self.omega, -1, r) if inverse else self.omega
             scale = pow(self.n, -1, r) if inverse else 1
-            tbl = f.encode([scale]).expand(n2, n1, f.W)
-            cols = torch.arange(n1, device=f.device)
+            tbl = f.encode([scale]).expand(n1, n2, f.W)
+            rows = torch.arange(n1, device=f.device)
             for t in range(self.log_n1):
                 pt = f.encode(power_table(w, n2, r))          # [n2, W]
-                mask = ((cols >> (self.log_n1 - 1 - t)) & 1) != 0
-                tbl = torch.where(mask[None, :, None], f.mul(tbl, pt[:, None]), tbl)
+                mask = ((rows >> (self.log_n1 - 1 - t)) & 1) != 0
+                tbl = torch.where(mask[:, None, None], f.mul(tbl, pt[None, :]), tbl)
                 w = w * w % r
             return tbl.reshape(self.n, f.W)
 
         return self._table(("cross", inverse), build)
 
     def _coset_table(self, shift: int, inverse: bool):
-        """C[a (row j2), b (col j1)] = g^(+-(b n2 + a)) as [n, W]."""
+        """C[a (j2), b (j1)] = g^(+-(b n2 + a)) at row b n2 + a of [n, W]
+        (the column layout of P1's input and of the inverse's P1 output)."""
 
         def build():
             r = self.r
             g = pow(shift, -1, r) if inverse else shift
-            row = [pow(g, a, r) for a in range(self.n2)]
-            col = [pow(g, b * self.n2, r) for b in range(self.n1)]
+            col = [pow(g, a, r) for a in range(self.n2)]
+            row = [pow(g, b * self.n2, r) for b in range(self.n1)]
             return self._outer(row, col)
 
         return self._table(("coset", shift, inverse), build)
 
     # ---------------------------------------------------------- transforms
-
-    def _transpose(self, x, rows: int, cols: int):
-        return x.view(rows, cols, self.f.W).transpose(0, 1).contiguous().view(self.n, self.f.W)
 
     def _check(self, x):
         if tuple(x.shape) != (self.n, self.f.W):
@@ -242,24 +288,23 @@ class FourStepPlan:
 
     def ntt_scr(self, coeffs, coset_shift: int | None = None):
         """[n, W] natural coefficients -> [n, W] scrambled evaluations (on
-        the coset shift H when coset_shift is given)."""
+        the coset shift H when coset_shift is given): two K9 launches."""
         self._check(coeffs)
-        f, n1, n2 = self.f, self.n1, self.n2
+        f, n1, n2, col = self.f, self.n1, self.n2, self.column
         entry = self._coset_table(coset_shift, False) if coset_shift is not None else None
-        x = self._transpose(coeffs, n1, n2)                                    # T1
-        x = ntt_pass(f, x, self.twiddles(n1, False), n1, False, entry, self._cross_table(False))
-        x = self._transpose(x, n2, n1)                                         # T2
-        return ntt_pass(f, x, self.twiddles(n2, False), n2, False)
+        x = ntt_pass(f, coeffs, self.twiddles(n1, False), n1, False, entry,   # T1, P1, T2
+                     self._cross_table(False), in_strides=col, out_strides=col)
+        return ntt_pass(f, x, self.twiddles(n2, False), n2, False)            # P2
 
     def intt_scr(self, evals_scr, coset_shift: int | None = None):
-        """[n, W] scrambled evaluations -> [n, W] natural coefficients."""
+        """[n, W] scrambled evaluations -> [n, W] natural coefficients: two
+        K9 launches."""
         self._check(evals_scr)
-        f, n1, n2 = self.f, self.n1, self.n2
+        f, n1, n2, col = self.f, self.n1, self.n2, self.column
         exit_ = self._coset_table(coset_shift, True) if coset_shift is not None else None
-        x = ntt_pass(f, evals_scr.contiguous(), self.twiddles(n2, True), n2, True)
-        x = self._transpose(x, n1, n2)                                         # T2'
-        x = ntt_pass(f, x, self.twiddles(n1, True), n1, True, self._cross_table(True), exit_)
-        return self._transpose(x, n2, n1)                                      # T1'
+        x = ntt_pass(f, evals_scr.contiguous(), self.twiddles(n2, True), n2, True)   # P2'
+        return ntt_pass(f, x, self.twiddles(n1, True), n1, True,                  # T2', P1', T1'
+                        self._cross_table(True), exit_, in_strides=col, out_strides=col)
 
     # ------------------------------------------------- scrambled-order data
 

@@ -10,7 +10,7 @@ Counterpart of the reference ``plonk/prove.py`` (Proof and Prover, :39-845):
 Round 3 takes one of the reference's two quotient paths, chosen by the
 same rule (``_use_lm_quotient``): the batch-major ``_quotient`` (the
 reference's ``_quotient_xla``) or, from a coset of 2^19 on, the four-step
-``_quotient_lm`` over the NTT stage kernel K9 (ops/ntt_kernels.py).  Both
+``_quotient_lm`` over the NTT pass kernel K9 (ops/ntt_kernels.py).  Both
 give the same proof.  Fiat-Shamir runs on host through the reference
 transcript, so the proof bytes equal the reference's for the same blinding
 (``rng=False``: none).

@@ -30,10 +30,14 @@ result line):
    against its strided twiddle slice), each timed on the device with its
    inputs read from HBM (the L2 flushed before each launch) beside its
    bound, and the host microseconds of one field_mul call; and the NTT
-   stage kernel K9 on random residues
+   pass kernel K9 on both scalar fields (BN254's lazy, BLS12-381's strict)
    at the four pass shapes of the 2^17 path's four-step transforms of 2^19
    (C = 512 and 1024, forward and inverse, with and without the fused entry
-   and exit multiplies).  Every plain version must launch no kernel (all
+   and exit multiplies), in the column layout through which the transforms
+   run the fused passes and contiguous, each timed beside its bound
+   recounted without the multiplies by one and beside PR 2-7's count.
+   Every random residue of this phase is drawn from all of [0, p), edge
+   values among them.  Every plain version must launch no kernel (all
    launch counters are read around each plain call);
 2. the 2^16 path, with the launch counts zeroed just before it: compile the
    2^16-constraint SquareChain circuit on BN254 with the test SRS on the
@@ -44,7 +48,8 @@ result line):
    itself; the prove's MSM share, the field kernels' launches per prove and
    the operands they copied are printed.  Then one warm prove + self-verify
    under torch.profiler: its CUDA kernel launches and the device's busy
-   share;
+   share; then round 3's seconds through both quotient paths
+   (Prover(rng=False), warm, five each, alternating; equal bytes);
 3. one commit-sized MSM (65,539 points of that SRS): the kernel path must
    equal the plain path (``msm_ctx(..., plain=True)``, which must launch
    nothing), and on a 4,096-point prefix the host Pippenger;
@@ -54,18 +59,24 @@ result line):
    proof bytes as on the CPU through both quotient paths, and a BSB22
    circuit must prove and verify;
 5. the 2^17 path: one four-step coset transform of 2^19 must equal the
-   radix-2 plan's (positions through scramble_perm) and invert exactly;
-   then, with the counts zeroed, the 2^17 SquareChain (the cap of the
-   production BN254 setup) is compiled, proved through the four-step
-   quotient and self-verified, with the same checks as phase 2 and every
-   kernel, K9 and the field kernels included, launched; two more proves of the same witness with
-   Prover(rng=False), forced through each quotient path, must give equal
-   bytes;
+   radix-2 plan's (positions through scramble_perm) and invert exactly, and
+   each direction, warm, must run its two K9 launches and nothing else on
+   the device (no transpose copy: K9's count, the PyTorch operators it
+   dispatches, allocations only, and a torch.profiler trace with no record
+   but K9's); then, with the counts zeroed, the 2^17
+   SquareChain (the cap of the production BN254 setup) is compiled, proved
+   through the four-step quotient and self-verified, with the same checks
+   as phase 2 and every kernel, K9 and the field kernels included,
+   launched, K9 28 times; one warm prove + self-verify under
+   torch.profiler (launches, K9's among them, and the busy share); two
+   more proves of the same witness with Prover(rng=False), forced through
+   each quotient path, must give equal bytes;
 6. the BLS12-381 path, with the counts zeroed just before it: the 2^14
    SquareChain (y in BLS12-381's Fr) compiled on the Ethereum KZG ceremony,
    proved and self-verified; the proof must be 33 words, a flipped public
    input rejected, the MSM kernels launched at W = 12 and the field kernels
-   in the prove.  Then a small BLS12-381
+   in the prove; round 3's seconds through both quotient paths as in phase
+   2.  Then a small BLS12-381
    circuit with the device MSM forced gives the CPU's proof bytes through
    both quotient paths (the four-step one runs K9 on BLS12-381's Fr), and
    an MSM over all 32,768 ceremony points agrees between the kernel path
@@ -87,7 +98,8 @@ path, the field kernels from the prove + self-verify of their curve's path,
 or the kernel-test path's for a field that prove does not compute in), the
 time of
 kernel and plain version at phase 1's shapes (K9's ms and plain_ms are the
-sums over its four pass shapes, itemised under "passes"; K1's, K2's and the
+sums over BN254's four main-path passes, every pass of both fields itemised
+under "passes"; K1's, K2's and the
 field kernels' other shapes are itemised under "shapes"; the field kernels'
 ms is at 2^18 contiguous rows, inputs from HBM), and the bound at
 those shapes: the larger of the bytes over HBM bandwidth and the 32-bit
@@ -112,6 +124,7 @@ LM_LOG_N = 17     # the BN254 2^17 path (four-step quotient, K9)
 BLS_LOG_N = 14    # the BLS12-381 path: the Ethereum KZG ceremony's cap
 BLS_MSM_POINTS = 1 << 15   # every G1 point of that ceremony
 HOST_PREFIX = 4096         # points checked against the host Pippenger
+TRACE_PADS = (0.02, 0.25, 1.0, 3.0)   # idle seconds around a traced call, by try
 MSM_SRC = "algoplonk_tpu_torch/csrc/msm_kernels.cu"
 CURVE_SRC = "algoplonk_tpu_torch/csrc/curve_kernels.cu"
 FIELD_SRC = "algoplonk_tpu_torch/csrc/field_kernels.cu"
@@ -166,22 +179,23 @@ def device_ms(torch, fn, reps: int, kernel: str, flush=None) -> float:
     buffer, which evicts fn's inputs from the L2: they then come from HBM,
     as a bytes bound over HBM bandwidth assumes.
 
-    A short trace can lose the records of launches made just after it
-    starts, so the launches begin 20 ms into it; a trace that still lacks
-    some is taken again, up to three times."""
+    On the card the profiler has lost the records of a trace's first
+    launches, and once every record of three short traces in a row, so the
+    launches run between idle pads (TRACE_PADS, longer at each try) and a
+    trace that lacks some is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for pad in TRACE_PADS:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.02)
+            time.sleep(pad)
             for _ in range(reps):
                 if flush is not None:
                     flush.sum()
                 fn()
             torch.cuda.synchronize()
-            time.sleep(0.02)
+            time.sleep(pad)
         spans = [e.duration_ns() for e in prof.profiler.kineto_results.events()
                  if e.device_type() == torch.autograd.DeviceType.CUDA and kernel in e.name()]
         if len(spans) == reps:
@@ -291,11 +305,21 @@ def pythagorean(apt):
 
 
 def random_residues(torch, f, n: int, gen):
-    """n canonical residues [n, W] on f's device: random words with the top
-    word cut so that every value is below 2^(bits(p) - 1) < p."""
+    """n canonical residues [n, W] on f's device over all of [0, p): random
+    words under a top word below p's, so that values in [2^(bits(p) - 1),
+    p) come up (where a lazy reduction would fail), and the edge values 0,
+    1, 2, p - 1, p - 2, (p - 1) / 2, 2^(bits(p) - 1) and Montgomery one spread
+    over the rows."""
+    from algoplonk_tpu_torch.fields.words import ints_to_words
+
+    p = f.fp.modulus
     x = torch.randint(-2**31, 2**31, (n, f.W), generator=gen, dtype=torch.int64)
-    x[:, -1] &= (1 << (f.fp.nbits - 1 - 32 * (f.W - 1))) - 1
-    return x.to(torch.int32).to(f.device).contiguous()
+    x[:, -1] = torch.randint(0, p >> (32 * (f.W - 1)), (n,), generator=gen)
+    x = x.to(torch.int32)
+    edges = [0, 1, 2, p - 1, p - 2, (p - 1) // 2, 1 << (p.bit_length() - 1), f.wf.r]
+    rows = torch.linspace(0, n - 1, len(edges)).long().unique()
+    x[rows] = torch.from_numpy(ints_to_words(edges[: len(rows)], f.W))
+    return x.to(f.device).contiguous()
 
 
 def commit_widths(n: int):
@@ -698,51 +722,84 @@ def field_bytes(xs, out) -> int:
     return total
 
 
+def k9_shapes(fsp):
+    """(C, inverse, fused) of the four K9 passes of a four-step transform,
+    in the order the round-3 quotient runs them: P1, P2 (ntt_scr), P2', P1'
+    (intt_scr); the fused ones run in the plan's column layout."""
+    return ((fsp.n1, False, True), (fsp.n2, False, False),
+            (fsp.n2, True, False), (fsp.n1, True, True))
+
+
+def k9_montmuls(N: int, C: int, fused: bool, skip_ones: bool = True) -> int:
+    """Montgomery multiplies a K9 pass must do: N/2 per stage, less the
+    (N / C)(C - 1) butterflies whose twiddle is one, plus the entry and exit
+    multiplies; with skip_ones False, the count PR 2-7 bounded K9 by."""
+    n = N // 2 * (C.bit_length() - 1) - (N // C * (C - 1) if skip_ones else 0)
+    return n + (2 * N if fused else 0)
+
+
 def ntt_kernel_phase(torch, bound):
-    """K9 against its plain version at the pass shapes of the 2^17 path:
-    the four-step transform of 2^19 splits into n1 = 512 and n2 = 1024."""
+    """K9 against its plain version, word for word, on both scalar fields
+    (BN254's runs lazy, BLS12-381's strict) at the four pass shapes of the
+    2^17 path's four-step transforms of 2^19 (n1 = 512, n2 = 1024), in the
+    layouts the transforms run them (P1 and P1' in the column layout), the
+    fused shapes also contiguous, on random residues with edge values.  Each
+    is timed on the device (torch.profiler) beside its bound, recounted
+    without the multiplies by one, and the bound of PR 2-7's count.  ms,
+    plain_ms and bound_ms are BN254's sums over its four main-path passes."""
+    import algoplonk_tpu_torch as apt
     from algoplonk_tpu_torch.ops import ntt_kernels as nk
 
-    fsp = nk.four_step_plan("bn254", LM_LOG_N + 2, "cuda")
-    f, N = fsp.f, fsp.n
-    g = torch.Generator(device="cpu").manual_seed(9)
-    passes, worst, total_bound = [], 0, 0.0
-    ops_total = bytes_total = 0
-    for C, inverse, fused in ((fsp.n1, False, True), (fsp.n2, False, False),
-                              (fsp.n2, True, False), (fsp.n1, True, True)):
-        x = random_residues(torch, f, N, g)
-        tw = fsp.twiddles(C, inverse)
-        kw = {}
-        if fused:
-            kw = dict(entry=random_residues(torch, f, N, g), exit_=random_residues(torch, f, N, g))
-        kern = lambda: nk.ntt_pass(f, x, tw, C, inverse, **kw)          # noqa: E731
-        plain = lambda: nk.plain_ntt_pass(f, x, tw, C, inverse, **kw)   # noqa: E731
-        out_k = kern()
-        torch.cuda.synchronize()
-        out_p = plain_launches_nothing(plain, "ntt_pass")
-        diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
-        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 1)
-        montmuls = N // 2 * (C.bit_length() - 1) + (2 * N if fused else 0)
-        moved = nbytes(x, tw, out_k, *kw.values())
-        bound_ms, bound_by = bound(f.W, montmuls, moved)
-        ops_total += montmuls
-        bytes_total += moved
-        total_bound += bound_ms
-        shape = f"{'dit' if inverse else 'dif'} N={N} C={C}" + (" entry+exit" if fused else "")
-        log(f"ntt_pass {shape}: exact={diff == 0} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
-        if diff != 0:
-            raise AssertionError(f"ntt_pass {shape}: kernel disagrees with its plain version")
-        worst = max(worst, diff)
-        passes.append({"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms})
-    t_ops = Bound.imuls(f.W, ops_total) / bound.imul_per_s
+    passes = []
+    for curve in (apt.BN254, apt.BLS12_381):
+        fsp = nk.four_step_plan(curve.name, LM_LOG_N + 2, "cuda")
+        f, N = fsp.f, fsp.n
+        g = torch.Generator(device="cpu").manual_seed(9)
+        for C, inverse, fused in k9_shapes(fsp):
+            x = random_residues(torch, f, N, g)
+            tw = fsp.twiddles(C, inverse)
+            kw = {}
+            if fused:
+                kw = dict(entry=random_residues(torch, f, N, g),
+                          exit_=random_residues(torch, f, N, g))
+            layouts = [("column", fsp.column), ("contiguous", None)] if fused else [
+                ("contiguous", None)]
+            for layout, st in layouts:
+                lk = dict(kw, in_strides=st, out_strides=st)
+                kern = lambda: nk.ntt_pass(f, x, tw, C, inverse, **lk)          # noqa: E731
+                plain = lambda: nk.plain_ntt_pass(f, x, tw, C, inverse, **lk)   # noqa: E731
+                out_k = kern()
+                torch.cuda.synchronize()
+                out_p = plain_launches_nothing(plain, "ntt_pass")
+                diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
+                shape = (f"{curve.name} {'dit' if inverse else 'dif'} N={N} C={C}"
+                         + (" entry+exit" if fused else "") + f" {layout}")
+                if diff != 0:
+                    raise AssertionError(f"ntt_pass {shape}: kernel disagrees with its plain version")
+                ms = device_ms(torch, kern, 20, "ntt_pass")
+                plain_ms = cuda_ms(plain, 1)
+                moved = nbytes(x, tw, out_k, *kw.values())
+                bound_ms, bound_by = bound(f.W, k9_montmuls(N, C, fused), moved)
+                old_ms, _ = bound(f.W, k9_montmuls(N, C, fused, skip_ones=False), moved)
+                log(f"ntt_pass {shape}: exact kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+                    f"bound {bound_ms:.4f} ms ({bound_by}; PR 2-7 count {old_ms:.4f}), "
+                    f"{ms / bound_ms:.2f}x")
+                passes.append({"shape": shape, "field": f.fp.name, "main_path": layout != "contiguous"
+                               or not fused, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "bound_old_ms": old_ms, "lazy": nk.lazy_headroom(f)})
+    main = [p for p in passes if p["main_path"] and p["field"] == "bn254_fr"]
+    for name in sorted({p["field"] for p in passes}):
+        mine = [p for p in passes if p["main_path"] and p["field"] == name]
+        log(f"ntt_pass {name}, the four main-path passes: {sum(p['ms'] for p in mine):.4f} ms, "
+            f"bound {sum(p['bound_ms'] for p in mine):.4f} ms "
+            f"(PR 2-7 count {sum(p['bound_old_ms'] for p in mine):.4f})")
     return {"name": "ntt_pass", "route": "cuda", "source": NTT_SRC,
-            "replaces": REPLACES["ntt_pass"], "kernel": "ntt_pass", "width": f.W,
-            "max_abs_err": worst,
-            "ms": sum(p["ms"] for p in passes),
-            "plain_ms": sum(p["plain_ms"] for p in passes),
-            "bound_ms": total_bound,
-            "bound_by": "operations" if t_ops >= bytes_total / HBM_BYTES_PER_S else "bytes",
+            "replaces": REPLACES["ntt_pass"], "kernel": "ntt_pass", "width": 8,
+            "max_abs_err": 0,
+            "ms": sum(p["ms"] for p in main),
+            "plain_ms": sum(p["plain_ms"] for p in main),
+            "bound_ms": sum(p["bound_ms"] for p in main),
+            "bound_by": "operations" if all(p["bound_by"] == "operations" for p in main) else "bytes",
             "library_ms": None, "passes": passes}
 
 
@@ -812,8 +869,55 @@ def kernel_test_path(torch, curve, lanes: int = 1024):
     return ok
 
 
+def device_kernel_names(torch, fn, expect: int):
+    """Names of the CUDA kernels and copies that one synchronised call of fn
+    runs on the device (torch.profiler), from the first trace that holds at
+    least ``expect`` records, taken between idle pads as in device_ms; the
+    last trace's names if none does (it may have lost records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for pad in TRACE_PADS:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if len(names) >= expect:
+            break
+        log(f"device_kernel_names: {len(names)} of {expect} records in the trace; again")
+    return names
+
+
+def dispatched_ops(torch, fn) -> list[str]:
+    """The PyTorch operators that one call of fn dispatches, recorded on the
+    host by a TorchDispatchMode: every PyTorch kernel and copy goes through
+    one, so a call whose operators are all allocations (``aten.empty*``)
+    runs no PyTorch kernel on the device."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Record() as rec:
+        fn()
+    return rec.ops
+
+
 def four_step_check(torch):
-    """One four-step coset transform of 2^19 against the radix-2 plan."""
+    """One four-step coset transform of 2^19 against the radix-2 plan, and
+    its round trip; then each direction, warm, must run two K9 launches and
+    nothing else on the device (no transpose copy): its K9 count, its
+    PyTorch operators (allocations only) and its device trace, which must
+    hold no record but K9's."""
     import algoplonk_tpu_torch as apt
     from algoplonk_tpu_torch.ops import ntt_kernels as nk
     from algoplonk_tpu_torch.ops.ntt import ntt_plan
@@ -836,6 +940,53 @@ def four_step_check(torch):
         f"radix-2 plan {t_r2:.3f} s (plan included); equal: {same}; round trip: {back}")
     if not (same and back):
         raise AssertionError("four-step coset transform disagrees with the radix-2 plan")
+    for name, fn in (("ntt_scr", lambda: fsp.ntt_scr(coeffs, coset_shift=shift)),
+                     ("intt_scr", lambda: fsp.intt_scr(ev, coset_shift=shift))):
+        before = nk.LAUNCHES["ntt_pass"]
+        ops = dispatched_ops(torch, fn)
+        k9 = nk.LAUNCHES["ntt_pass"] - before
+        names = device_kernel_names(torch, fn, 2)
+        log(f"{name} of 2^{log_n}, warm: {k9} K9 launches; PyTorch operators: {ops}; "
+            f"device events: {names}")
+        if k9 != 2 or not all(op.startswith("aten.empty") for op in ops):
+            raise AssertionError(f"{name} ran more than its two K9 passes: {k9} K9, {ops}")
+        if len(names) > 2 or not all("ntt_pass" in n for n in names):
+            raise AssertionError(f"{name} ran more than its two K9 passes on the device: {names}")
+        if len(names) < 2:
+            log(f"{name}: the profiler lost records in every trace ({len(names)} of 2); "
+                "the operator record and the K9 count above decide")
+
+
+def quotient_paths(torch, apt, cc, circuit, tag, reps: int = 5):
+    """Round 3's seconds through both quotient paths at one size:
+    Prover(rng=False) on one witness, warm (one prove each first), reps
+    proves per path in alternating order; both must give the same bytes."""
+    from algoplonk_tpu_torch.frontend import witness as witness_mod
+    from algoplonk_tpu_torch.plonk.marshal import marshal_proof
+    from algoplonk_tpu_torch.plonk.prove import Prover
+
+    if cc.ccs.commitments:
+        raise ValueError("one witness serves every prover only without BSB22 commitments")
+    wit = witness_mod.solve(cc.ccs, circuit)
+    r3, blobs = {"0": [], "1": []}, {}
+    try:
+        for i in range(reps + 1):
+            for lm in ("0", "1") if i % 2 == 0 else ("1", "0"):
+                os.environ["AP_QUOTIENT_LM"] = lm
+                prover = Prover(cc.pk, cc.ccs, rng=False)
+                blobs[lm] = marshal_proof(cc.curve, prover.prove(wit))
+                if i:
+                    r3[lm].append(prover.phase_seconds["r3"])
+    finally:
+        os.environ.pop("AP_QUOTIENT_LM", None)
+    med = {k: sorted(v)[len(v) // 2] for k, v in r3.items()}
+    log(f"{tag} round 3 by quotient path, Prover(rng=False), warm, {reps} each alternating (s): "
+        f"four-step {json.dumps([round(t, 4) for t in r3['1']])} (median {med['1']:.4f}), "
+        f"batch-major {json.dumps([round(t, 4) for t in r3['0']])} (median {med['0']:.4f}); "
+        f"proof bytes equal: {blobs['0'] == blobs['1']}")
+    if blobs["0"] != blobs["1"]:
+        raise AssertionError(f"{tag} the two quotient paths give different proofs")
+    return r3
 
 
 def profile_device(torch, fn):
@@ -1061,6 +1212,7 @@ def main() -> int:
         f"{by_type}")
     if n_kernels == 0:
         raise AssertionError("the profiler saw no CUDA kernel in a prove")
+    quotient_paths(torch, apt, cc, SquareChain(x=x, y=y), f"[bn254 2^{LOG_N}]")
 
     # ---- phase 3: one commit-sized MSM, kernels vs plain; a prefix vs host
     r = apt.BN254.fr.modulus
@@ -1140,6 +1292,14 @@ def main() -> int:
     for k in kernels:
         if k["kernel"] in ck.MSM_KERNELS + nk.KERNELS and k["width"] == 8:
             k["launches"] = launches[k["kernel"]]
+    k9_before = nk.LAUNCHES["ntt_pass"]
+    n_kernels, by_type, busy, wall = profile_device(torch, lambda: cc.verify(SquareChain(x=x, y=y)))
+    k9 = nk.LAUNCHES["ntt_pass"] - k9_before
+    log(f"[bn254 2^{LM_LOG_N}] warm prove + self-verify under torch.profiler: {wall:.2f} s, "
+        f"{n_kernels} CUDA kernel launches ({k9} of them K9), device busy {busy:.1%}; "
+        f"device events by type: {by_type}")
+    if k9 != 2 * (lifts + 1):
+        raise AssertionError(f"the traced 2^{LM_LOG_N} prove launched K9 {k9} times")
     blobs, r3 = {}, {}
     for lm in ("1", "0"):
         os.environ["AP_QUOTIENT_LM"] = lm
@@ -1162,13 +1322,15 @@ def main() -> int:
     # ---- phase 6: the BLS12-381 path on the Ethereum KZG ceremony
     bls = apt.BLS12_381
     ceremony = apt.SetupName.ETHEREUM_KZG_CEREMONY_BLS12_381
-    _, _, _, _, by_width, _ = drive(bls, ceremony, BLS_LOG_N, ck.MSM_KERNELS)
+    bcc, BSquare, bx, by, by_width, _ = drive(bls, ceremony, BLS_LOG_N, ck.MSM_KERNELS)
     missing = [k for k in ck.MSM_KERNELS if by_width[k, 12] == 0]
     if missing:
         raise AssertionError(f"kernels not launched at W = 12 on the BLS12-381 path: {missing}")
     for k in kernels:
         if k["kernel"] in ck.MSM_KERNELS and k["width"] == 12:
             k["launches"] = by_width[k["kernel"], 12]
+    quotient_paths(torch, apt, bcc, BSquare(x=bx, y=by), f"[bls12_381 2^{BLS_LOG_N}]")
+    del bcc
     gpu_equals_cpu(bls, ceremony, P, dict(a=3, b=4, c=5), [3, 4])
 
     t0 = time.perf_counter()

@@ -4,7 +4,7 @@ and W = 12 (BLS12-381), K1 on a commit-sized table, K2 at every thread
 count per lane, K3's window scan and phase-4 entries at the window sizes
 of the MSM, K5-K7 (csrc/curve_kernels.cu) on both curves, K8 and
 field_add_sub (csrc/field_kernels.cu) on every field at every operand
-layout the prover gives them, and the NTT stage kernel K9
+layout the prover gives them, and the NTT pass kernel K9
 (csrc/ntt_kernels.cu); then ``FieldOps`` on the card against the CPU's, the
 device MSM, the four-step transform and small proofs against host
 arithmetic and the CPU.  Every plain version is checked to launch nothing.
@@ -16,6 +16,7 @@ so it runs on a machine without it:
 """
 
 import random
+import time
 
 import pytest
 import torch
@@ -492,47 +493,152 @@ def test_device_msm_chunk_sum(monkeypatch, cuda_device):
 
 
 def random_residues(f, n: int, gen) -> torch.Tensor:
-    """n canonical residues [n, W] made on the device: random words with the
-    top word cut below 2^28, so every value is below 2^252 < p."""
+    """n canonical residues [n, W] made on the device, over all of [0, p):
+    random words under a top word below p's (so values in [2^(bits(p) - 1),
+    p) come up, where a lazy reduction would fail), and the edge values 0,
+    1, 2, p - 1, p - 2, (p - 1) / 2, 2^(bits(p) - 1) and Montgomery one spread
+    over the rows."""
+    p = f.fp.modulus
     x = torch.randint(-(2**31), 2**31, (n, f.W), generator=gen, dtype=torch.int64)
-    x[:, -1] &= (1 << 28) - 1
-    return x.to(torch.int32).to(f.device).contiguous()
+    x[:, -1] = torch.randint(0, p >> (32 * (f.W - 1)), (n,), generator=gen)
+    x = x.to(torch.int32)
+    edges = [0, 1, 2, p - 1, p - 2, (p - 1) // 2, 1 << (p.bit_length() - 1), f.wf.r]
+    rows = torch.linspace(0, n - 1, len(edges)).long().unique()
+    x[rows] = torch.from_numpy(ints_to_words(edges[: len(rows)], f.W))
+    return x.to(f.device).contiguous()
 
 
-@pytest.mark.parametrize(
-    "N,C,inverse,fused",
-    [(64, 8, False, False), (64, 8, True, True), (64, 2, False, True),
-     (1 << 19, 512, False, True), (1 << 19, 1024, True, False), (1 << 12, 2048, False, True)],
-    ids=["small-dif", "small-dit-fused", "c2-dif-fused", "main-dif-fused", "main-dit",
-         "c2048-dif-fused"],
-)
-def test_k9_ntt_pass(cuda_device, N, C, inverse, fused):
-    f = field_ops(BN254.fr, cuda_device)
-    gen = torch.Generator().manual_seed(N + C)
+FR_FIELDS = {"bn254": BN254.fr, "bls12_381": apt.BLS12_381.fr}
+K9_LAYOUTS = ("contiguous", "column", "column_in")
+
+
+def k9_strides(layout: str, N: int, C: int):
+    """(in_strides, out_strides) of a layout: the four-step's column of an
+    [C, N / C] array on both sides, or on the input only."""
+    col = (N // C, 1)
+    return {"contiguous": (None, None), "column": (col, col), "column_in": (col, None)}[layout]
+
+
+def check_k9(curve, device, N, C, inverse, fused, layout, seed):
+    f = field_ops(FR_FIELDS[curve], device)
+    gen = torch.Generator().manual_seed(seed)
     x = random_residues(f, N, gen)
-    tw = f.encode(nk.stage_twiddles("bn254", C, inverse))
+    tw = f.encode(nk.stage_twiddles(curve, C, inverse))
     kw = dict(entry=random_residues(f, N, gen), exit_=random_residues(f, N, gen)) if fused else {}
-    before = nk.LAUNCHES["ntt_pass"]
-    got = nk.ntt_pass(f, x, tw, C, inverse, **kw)
-    torch.cuda.synchronize()
-    assert nk.LAUNCHES["ntt_pass"] == before + 1
-    assert torch.equal(got, nk.plain_ntt_pass(f, x, tw, C, inverse, **kw))
-    assert nk.LAUNCHES["ntt_pass"] == before + 1
+    ins, outs = k9_strides(layout, N, C)
+    run_and_compare(
+        "ntt_pass",
+        lambda: nk.ntt_pass(f, x, tw, C, inverse, **kw, in_strides=ins, out_strides=outs),
+        lambda: nk.plain_ntt_pass(f, x, tw, C, inverse, **kw, in_strides=ins, out_strides=outs))
 
 
-def test_four_step_coset_matches_radix2(cuda_device):
+@pytest.mark.parametrize("layout", K9_LAYOUTS)
+@pytest.mark.parametrize("fused", [False, True], ids=["bare", "entry_exit"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["dif", "dit"])
+@pytest.mark.parametrize("C", [2, 4, 8, 16, 64, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("field", sorted(FR_FIELDS))
+def test_k9_ntt_pass(cuda_device, field, C, inverse, fused, layout):
+    """K9 word for word against its plain version at every pass size, both
+    directions, bare and fused, on both scalar fields (BN254's lazy, BLS12-
+    381's strict), contiguous and in the four-step's column layouts.  N / C
+    = 45 sub-transforms: no multiple of the sub-transforms a block takes."""
+    check_k9(field, cuda_device, 45 * C, C, inverse, fused, layout, seed=C + 2 * inverse + fused)
+
+
+@pytest.mark.parametrize("field", sorted(FR_FIELDS))
+@pytest.mark.parametrize(
+    "C,inverse,fused,layout",
+    [(512, False, True, "column"), (1024, False, False, "contiguous"),
+     (1024, True, False, "contiguous"), (512, True, True, "column")],
+    ids=["p1-dif", "p2-dif", "p2-dit", "p1-dit"])
+def test_k9_ntt_pass_main_path(cuda_device, field, C, inverse, fused, layout):
+    """The four passes of a four-step transform of 2^19 (the 2^17 prove's
+    round 3), at full size."""
+    check_k9(field, cuda_device, 1 << 19, C, inverse, fused, layout, seed=C + inverse)
+
+
+def test_k9_refuses_bad_strides(cuda_device):
+    f = field_ops(BN254.fr, cuda_device)
+    x = random_residues(f, 64, torch.Generator().manual_seed(3))
+    tw = f.encode(nk.stage_twiddles("bn254", 8, False))
+    for bad in ((9, 1), (0, 8), (1, 9)):
+        with pytest.raises(ValueError):
+            nk.ntt_pass(f, x, tw, 8, False, in_strides=bad)
+        with pytest.raises(ValueError):
+            nk.ntt_pass(f, x, tw, 8, False, out_strides=bad)
+
+
+def device_kernels(fn, expect: int):
+    """Names of the CUDA kernels and copies that one call of fn runs on the
+    device (torch.profiler), from the first trace that holds at least
+    ``expect`` records.  The profiler has lost a short trace's first
+    records, and all of them, so fn runs between idle pads, longer at each
+    of four tries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for pad in (0.02, 0.25, 1.0, 3.0):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if len(names) >= expect:
+            break
+    return names
+
+
+def dispatched_ops(fn):
+    """The PyTorch operators one call of fn dispatches (a TorchDispatchMode
+    record on the host, which every PyTorch kernel and copy goes through)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Record() as rec:
+        fn()
+    return rec.ops
+
+
+def assert_two_k9_passes(fn):
+    """fn launches K9 twice and nothing else: two K9 counts, PyTorch
+    operators that only allocate, and a device trace with no record but
+    K9's (all of its two unless the profiler lost them in every try)."""
+    nk.reset_launch_counts()
+    ops = dispatched_ops(fn)
+    assert nk.LAUNCHES["ntt_pass"] == 2
+    assert all(op.startswith("aten.empty") for op in ops), ops
+    names = device_kernels(fn, 2)
+    assert len(names) <= 2 and all("ntt_pass" in n for n in names), names
+
+
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_four_step_coset_matches_radix2(cuda_device, curve):
     """A coset transform of 2^12 through K9 equals the radix-2 plan's,
-    position for position, and the round trip is the identity."""
-    log_n, g = 12, BN254.coset_shift
-    fsp = nk.four_step_plan("bn254", log_n, cuda_device)
+    position for position, and the round trip is the identity; each
+    direction is two K9 launches and runs no other kernel and no copy."""
+    log_n = 12
+    g = apt.fields.params.CURVES[curve].coset_shift
+    fsp = nk.four_step_plan(curve, log_n, cuda_device)
     f = fsp.f
     coeffs = random_residues(f, fsp.n, torch.Generator().manual_seed(7))
-    nk.reset_launch_counts()
+    fsp.intt_scr(fsp.ntt_scr(coeffs, coset_shift=g), coset_shift=g)   # the plan's tables
     ev = fsp.ntt_scr(coeffs, coset_shift=g)
-    assert nk.LAUNCHES["ntt_pass"] == 2
+    assert_two_k9_passes(lambda: fsp.ntt_scr(coeffs, coset_shift=g))
     perm = torch.from_numpy(fsp.scramble_perm()).to(cuda_device)
-    assert torch.equal(ev, ntt_plan("bn254", log_n, cuda_device).coset_ntt(coeffs, g)[perm])
-    assert torch.equal(fsp.intt_scr(ev, coset_shift=g), coeffs)
+    assert torch.equal(ev, ntt_plan(curve, log_n, cuda_device).coset_ntt(coeffs, g)[perm])
+    back = fsp.intt_scr(ev, coset_shift=g)
+    assert_two_k9_passes(lambda: fsp.intt_scr(ev, coset_shift=g))
+    assert torch.equal(back, coeffs)
 
 
 @pytest.mark.parametrize("curve", ["bn254", "bls12_381"])

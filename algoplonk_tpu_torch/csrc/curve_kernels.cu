@@ -8,17 +8,36 @@
 // (K8 pallas_field_mul is field_kernels.cu's.)
 //
 // They take the limbs-major [coord, W, B] layout of the MSM kernels
-// (lanes.cuh), one lane per thread, and reuse their formulas (curve.cuh): K5
-// and K6 are one step of K1 without the gather, K7 is K2 without the store
-// after every step.
+// (lanes.cuh) and reuse their formulas (curve.cuh): K5 and K6 are one step
+// of K1 without the gather, K7 is K2 without the store after every step.
 //
 // Every kernel is a template on W.  The file is compiled once for W = 8 and
 // once for W = 12, and each object exports its entry points under names that
-// end in its width (lanes.cuh).  What bounds them on the H100 is what bounds
-// K1-K4: 32-bit integer multiplies and, at W = 12, registers.  They run the
-// lazy formulas of curve.cuh and store canonical words.  A simple kernel that
-// is right is all this file claims; each is held word for word against its
-// plain PyTorch version (algoplonk_tpu_torch/ops/curve_kernels.py).
+// end in its width (lanes.cuh).  They run the lazy formulas of curve.cuh and
+// store canonical words; each is held word for word against its plain
+// PyTorch version (algoplonk_tpu_torch/ops/curve_kernels.py).
+//
+// What bounds them on the H100: 32-bit integer multiplies, and the chain of
+// dependent ones each thread runs when the lanes are too few to fill the
+// card's 132 SMs with warps.  K5 keeps one lane per thread.  K6 and K7 were
+// redesigned for that:
+// - K7 (g projective adds per lane, the last sum only) ran g = 16 dependent
+//   adds on one thread per lane: at the kernel-test widths, 1,664 lanes at
+//   W = 12 are 13 blocks on 132 SMs.  It now runs T threads per lane (T a
+//   power of two <= 16 dividing g, chosen by the wrapper from the lane and
+//   step counts alone): each thread sums g/T steps and a tree of warp
+//   shuffles adds the T partial sums, so the chain is g/T + log2 T adds.
+//   The RCB formulas are complete, so the re-association is safe; the sum
+//   equals the sequential one as a point, and word for word the plain
+//   version's, which follows the same association.
+// - K6 (one signed mixed add per lane, 11 multiplies in two stages of
+//   independent ones) runs TM = 1 or 2 threads per lane, chosen by the
+//   wrapper from the width: at TM = 2 one warp per role of
+//   ap::mixed_add_roles, the products exchanged through shared memory, so
+//   the chain is 6 multiplies and the warps on the card double.  Every
+//   product is ap::mixed_add's, so the words are too.  Its block and the
+//   blocks an SM must hold are set per TM and width (kK6Threads,
+//   kK6MinBlocks) so that a kernel-test width fills the card's SMs evenly.
 //
 // Every entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() so the caller sees a refused launch.
@@ -66,49 +85,141 @@ mixed_add_kernel(const uint32_t* __restrict__ acc,
   store_proj<W>(out, a, B, b, cc.f.p);
 }
 
+// Stores coordinate k of a lazy point (below 2p) in canonical form.
+template <int W>
+__device__ __forceinline__ void store_coord(uint32_t* dst, int k,
+                                            const uint32_t* v, int64_t B,
+                                            int64_t b, const uint32_t* p) {
+  uint32_t x[W];
+  ap::cond_sub<W>(x, v, p);
+#pragma unroll
+  for (int w = 0; w < W; ++w) dst[(k * W + w) * B + b] = x[w];
+}
+
+// K6's shapes, index TM - 1 for TM = 1, 2 threads per lane: the block
+// (TM = 1: one lane a thread; TM = 2: groups of two warps that share 32
+// lanes) and the blocks an SM must hold, which caps ptxas's registers: the
+// fastest without a spill at the kernel-test widths on an H100 (PERF.md).
+// A shape that runs 98,688 lanes at W = 8 in one wave needs at most 85
+// registers a thread, and ptxas spilled at 80 and at 96; at 128, blocks of
+// 256 beat blocks of 128.
+#if AP_W == 8
+constexpr int kK6Threads[2] = {256, 128};
+constexpr int kK6MinBlocks[2] = {2, 4};
+#else
+constexpr int kK6Threads[2] = {128, 128};
+constexpr int kK6MinBlocks[2] = {3, 3};
+#endif
+
 // K6: as K5, with the point negated on lanes where neg [1, B] is non-zero.
 // The identity mask comes from the raw coordinates, before the negation.
-template <int W>
-__global__ void __launch_bounds__(kThreads)
+// TM = 1: one thread per lane runs mixed_add.  TM = 2: a group of two
+// warps runs 32 lanes, warp k of the group in role k of mixed_add_roles,
+// and stores the coordinates its role holds (x and z, or y); lanes past B
+// compute on lane B - 1's data (they hold the block's barriers) and store
+// nothing.
+template <int W, int TM, int NT, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
 mixed_add_signed_kernel(const uint32_t* __restrict__ acc,
                         const uint32_t* __restrict__ pts,
                         const int32_t* __restrict__ neg,
                         uint32_t* __restrict__ out, int64_t B,
                         ap::CurveConsts<W> cc) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  constexpr int kGroups = TM == 1 ? 1 : NT / (32 * TM);
+  static_assert(TM == 1 || NT == kGroups * 32 * TM, "a block of whole groups");
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int role = TM == 1 ? 0 : warp % TM;
+  const int64_t lane =
+      TM == 1 ? (int64_t)blockIdx.x * NT + threadIdx.x
+              : ((int64_t)blockIdx.x * kGroups + warp / TM) * 32 + l;
+  if (TM == 1 && lane >= B) return;
+  const bool live = lane < B;
+  const int64_t b = live ? lane : B - 1;
   ap::Proj<W> a;
   load_proj<W>(a, acc, B, b);
   uint32_t x2[W], y2[W];
   load_affine<W>(x2, y2, pts, B, b);
   const bool q_inf = ap::is_zero<W>(x2) && ap::is_zero<W>(y2);
   if (neg[b] != 0) ap::neg_mod<W>(y2, cc.f.p);
-  ap::mixed_add<W>(a, x2, y2, q_inf, cc);
-  store_proj<W>(out, a, B, b, cc.f.p);
+  if constexpr (TM == 1) {
+    ap::mixed_add<W>(a, x2, y2, q_inf, cc);
+    store_proj<W>(out, a, B, b, cc.f.p);
+  } else {
+    __shared__ uint32_t ex[kGroups][ap::kRoleSlots * W * 32];
+    ap::mixed_add_roles<W>(a, x2, y2, q_inf, role, ex[warp / TM], l, cc);
+    if (live && role == 0) {
+      store_coord<W>(out, 0, a.x, B, b, cc.f.p);
+      store_coord<W>(out, 2, a.z, B, b, cc.f.p);
+    } else if (live) {
+      store_coord<W>(out, 1, a.y, B, b, cc.f.p);
+    }
+  }
 }
 
-// K7's blocks per SM for ptxas: with no minimum, ptxas held K7 at W = 12 to
-// 168 registers and spilled 28 bytes; a minimum of 2 gives it 190 and no
-// spill (the step loop's unrolling made no difference).
+template <int W, int TM, int NT, int MINB>
+int launch_mixed_add_signed(const void* acc, const void* pts, const void* neg,
+                            void* out, int64_t B, const ap::CurveConsts<W>& cc,
+                            cudaStream_t stream) {
+  const int64_t lanes = TM == 1 ? NT : NT / TM;   // lanes per block
+  if (B > 0)
+    mixed_add_signed_kernel<W, TM, NT, MINB>
+        <<<(unsigned)((B + lanes - 1) / lanes), NT, 0, stream>>>(
+            (const uint32_t*)acc, (const uint32_t*)pts, (const int32_t*)neg,
+            (uint32_t*)out, B, cc);
+  return (int)cudaGetLastError();
+}
+
+template <int W>
+__device__ __forceinline__ void shfl_down_proj(ap::Proj<W>& dst,
+                                               const ap::Proj<W>& src, int d,
+                                               int T) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    dst.x[w] = __shfl_down_sync(0xffffffffu, src.x[w], d, T);
+    dst.y[w] = __shfl_down_sync(0xffffffffu, src.y[w], d, T);
+    dst.z[w] = __shfl_down_sync(0xffffffffu, src.z[w], d, T);
+  }
+}
+
+// K7's block and the blocks an SM must hold for ptxas: at W = 12 a minimum
+// of 2 gives it 201 registers and no spill (with none, the one-thread
+// kernel it replaced was held to 168 and spilled 28 bytes); at W = 8 no
+// minimum gives 136 registers, and a minimum of 4 (128) spilled 16 bytes.
+constexpr int kK7Threads = 128;
 constexpr int kK7MinBlocks = AP_W == 8 ? 1 : 2;
 
-// K7: acc [3, W, B] + qs[0..g) ([3g, W, B]) -> out [3, W, B], the
-// accumulator kept in registers and stored once.
-template <int W>
-__global__ void __launch_bounds__(kThreads, kK7MinBlocks)
+// K7: acc [3, W, B] + qs[0..g) ([3g, W, B]) -> out [3, W, B], with T
+// threads per lane (T a power of two <= 16 dividing g): thread s sums steps
+// [s L, (s + 1) L) (L = g / T), thread 0 from acc, and a tree over the
+// lane's threads adds the T partial sums, y[s] <- y[s] + y[s + d] for d =
+// 1, 2, 4, ..., through warp shuffles (thread s of lane b is thread b T + s
+// of the grid, so a lane's threads share a warp).  Thread 0 stores the
+// sum; lanes past B compute on lane B - 1's data, take part in the
+// shuffles, and store nothing.
+template <int W, int NT, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
 jac_add_multi_kernel(const uint32_t* __restrict__ acc,
                      const uint32_t* __restrict__ qs,
-                     uint32_t* __restrict__ out, int64_t B, int g,
+                     uint32_t* __restrict__ out, int64_t B, int g, int T,
                      ap::CurveConsts<W> cc) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  ap::Proj<W> a, q;
-  load_proj<W>(a, acc, B, b);
-  for (int k = 0; k < g; ++k) {
-    load_proj<W>(q, qs + (int64_t)3 * k * W * B, B, b);
-    ap::jac_add<W>(a, a, q, cc);
+  const int64_t t = (int64_t)blockIdx.x * NT + threadIdx.x;
+  const int s = (int)(t % T);
+  const int64_t lane = t / T;
+  const bool live = lane < B;
+  const int64_t b = live ? lane : B - 1;
+  const int L = g / T;
+  const int64_t step = (int64_t)3 * W * B;
+  ap::Proj<W> y, q;
+  load_proj<W>(y, s == 0 ? acc : qs + s * L * step, B, b);
+  for (int j = s == 0 ? 0 : 1; j < L; ++j) {
+    load_proj<W>(q, qs + (s * L + j) * step, B, b);
+    ap::jac_add<W>(y, y, q, cc);
   }
-  store_proj<W>(out, a, B, b, cc.f.p);
+  for (int d = 1; d < T; d <<= 1) {
+    shfl_down_proj<W>(q, y, d, T);
+    ap::jac_add<W>(y, y, q, cc);
+  }
+  if (s == 0 && live) store_proj<W>(out, y, B, b, cc.f.p);
 }
 
 }  // namespace
@@ -126,26 +237,36 @@ int AP_ENTRY(ap_mixed_add)(const void* acc, const void* pts, void* out,
   return (int)cudaGetLastError();
 }
 
+// Tm: threads per lane, 1 or 2.
 int AP_ENTRY(ap_mixed_add_signed)(const void* acc, const void* pts,
                                   const void* neg, void* out, int64_t B,
-                                  const void* consts, void* stream) {
+                                  int Tm, const void* consts, void* stream) {
   const auto cc = *static_cast<const ap::CurveConsts<AP_W>*>(consts);
-  if (B > 0)
-    mixed_add_signed_kernel<AP_W><<<blocks_for(B), kThreads, 0,
-                                    (cudaStream_t)stream>>>(
-        (const uint32_t*)acc, (const uint32_t*)pts, (const int32_t*)neg,
-        (uint32_t*)out, B, cc);
-  return (int)cudaGetLastError();
+  const auto st = (cudaStream_t)stream;
+  switch (Tm) {
+    case 1:
+      return launch_mixed_add_signed<AP_W, 1, kK6Threads[0], kK6MinBlocks[0]>(
+          acc, pts, neg, out, B, cc, st);
+    case 2:
+      return launch_mixed_add_signed<AP_W, 2, kK6Threads[1], kK6MinBlocks[1]>(
+          acc, pts, neg, out, B, cc, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
+// T: threads per lane, a power of two <= 16 that divides g (1 if g = 0).
 int AP_ENTRY(ap_jac_add_multi)(const void* acc, const void* qs, void* out,
-                               int64_t B, int g, const void* consts,
+                               int64_t B, int g, int T, const void* consts,
                                void* stream) {
+  if (T < 1 || T > 16 || (T & (T - 1)) != 0 || g % T != 0 || (g == 0 && T > 1))
+    return (int)cudaErrorInvalidValue;
   const auto cc = *static_cast<const ap::CurveConsts<AP_W>*>(consts);
   if (B > 0)
-    jac_add_multi_kernel<AP_W><<<blocks_for(B), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-        (const uint32_t*)acc, (const uint32_t*)qs, (uint32_t*)out, B, g, cc);
+    jac_add_multi_kernel<AP_W, kK7Threads, kK7MinBlocks>
+        <<<(unsigned)((B * T + kK7Threads - 1) / kK7Threads), kK7Threads, 0,
+           (cudaStream_t)stream>>>(
+        (const uint32_t*)acc, (const uint32_t*)qs, (uint32_t*)out, B, g, T, cc);
   return (int)cudaGetLastError();
 }
 

@@ -35,10 +35,14 @@ is built for W = 8 (BN254) and W = 12 (BLS12-381's Fp).
 
 The curve kernels run a lazy field core (values below 2p, made canonical at
 the store), valid only for a field with 4p < R; ``check_lazy_headroom``
-refuses any other when the constants are packed.  K2 runs ``T`` threads per
-lane (``scan_threads``, a function of the lane and step counts alone) and
-re-associates the scan; its plain version takes the same T and follows the
-same association, so the two stay equal word for word.
+refuses any other when the constants are packed.  K2 and K7 run ``T``
+threads per lane (``scan_threads``, ``multi_threads``: functions of the lane
+and step counts alone) and re-associate the scan or the sum; each plain
+version takes the same T and follows the same association, so the two stay
+equal word for word.  K6 spreads each mixed add over ``mixed_threads(W)``
+threads (one warp per role of ``ap::mixed_add_roles``), every product the
+same operation on the same operands, so its words are the plain version's
+at every count.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
 kernel or raises, with no fallback.  The plain versions compute on the
@@ -107,23 +111,29 @@ def plain_mixed_add_signed_multi(ops: CurveOps, acc, pts_flat, packed):
     return _lm(a)
 
 
+def threads_per_lane(B: int, g: int, choices, min_threads: int) -> int:
+    """Threads per lane for B lanes of g steps: the smallest T of
+    ``choices`` (ascending, starting at 1) that divides g and gives
+    B T >= min_threads threads, or the largest that divides g (1 for
+    g = 0).  It reads no device property, so the CPU's plain version takes
+    the same association as the card's kernel."""
+    fits = [T for T in choices if g % T == 0 and T <= max(g, 1)]
+    for T in fits:
+        if B * T >= min_threads:
+            return T
+    return fits[-1]
+
+
 SCAN_THREADS = (1, 4, 16)   # K2's threads per lane
 K2_MIN_THREADS = 12288      # K2 takes the least T that gives this many
 
 
 def scan_threads(B: int, g: int) -> int:
-    """K2's threads per lane for B lanes of g steps: the smallest T of
-    SCAN_THREADS that divides g and gives B T >= K2_MIN_THREADS threads,
-    or the largest that divides g.  A lane's T threads are each
-    g/T - 1 + log2 T + g/T adds deep (g at T = 1), so T = 2 would not
-    shorten the scan, and T = 8 lost to 4 or 16 at every commit shape
-    measured (PERF.md).  It reads no device property, so the CPU's plain
-    scan takes the same association as the card's kernel."""
-    fits = [T for T in SCAN_THREADS if g % T == 0]
-    for T in fits:
-        if B * T >= K2_MIN_THREADS:
-            return T
-    return fits[-1]
+    """K2's threads per lane (``threads_per_lane`` over SCAN_THREADS and
+    K2_MIN_THREADS).  A lane's T threads are each g/T - 1 + log2 T + g/T
+    adds deep (g at T = 1), so T = 2 would not shorten the scan, and T = 8
+    lost to 4 or 16 at every commit shape measured (PERF.md)."""
+    return threads_per_lane(B, g, SCAN_THREADS, K2_MIN_THREADS)
 
 
 def plain_jac_add_multi_scan(ops: CurveOps, acc, qs, T: int | None = None):
@@ -231,12 +241,43 @@ def plain_mixed_add_signed(ops: CurveOps, acc, pts, neg):
     return _lm(ops.jac_add_affine(_bm(acc), torch.stack([p[:, 0], y], dim=1)))
 
 
-def plain_jac_add_multi(ops: CurveOps, acc, qs):
+MULTI_THREADS = (1, 2, 4, 8, 16)   # K7's threads per lane
+K7_MIN_THREADS = 16384              # K7 takes the least T that gives this many
+
+
+def multi_threads(B: int, g: int) -> int:
+    """K7's threads per lane (``threads_per_lane`` over MULTI_THREADS and
+    K7_MIN_THREADS).  A lane's T threads are g/T + log2 T adds deep (g at
+    T = 1), so T = 2 already shortens the chain, but every warp runs the
+    log2 T adds of the tree, so a larger T costs issue slots: at 16 steps,
+    6,272 lanes (W = 8) ran fastest at T = 4 (B T = 25,088) and 1,664 lanes
+    (W = 12) at T = 8 or 16 on an H100 (PERF.md)."""
+    return threads_per_lane(B, g, MULTI_THREADS, K7_MIN_THREADS)
+
+
+def plain_jac_add_multi(ops: CurveOps, acc, qs, T: int | None = None):
+    """K7's plain version, in the kernel's association for T threads per
+    lane (default ``multi_threads``): thread s of a lane sums steps [s L,
+    (s + 1) L) (L = g / T), thread 0 from acc, and the T partial sums are
+    added by a tree, y[s] <- y[s] + y[s + d] for d = 1, 2, 4, ...  T = 1 is
+    the sequential sum."""
     ops = ops.as_plain()
+    g = qs.shape[0] // 3
+    T = multi_threads(acc.shape[-1], g) if T is None else T
+    if g % T or T > max(g, 1):
+        raise ValueError(f"T = {T} does not divide g = {g}")
     a = _bm(acc)
-    for k in range(qs.shape[0] // 3):
-        a = ops.jac_add(a, _bm(qs[3 * k : 3 * k + 3]))
-    return _lm(a)
+    if g == 0:
+        return _lm(a)
+    L = g // T
+    q = _bm(qs).reshape(-1, g, 3, ops.W).transpose(0, 1)      # [g, B, 3, W]
+    q = q.reshape(T, L, *q.shape[1:])                         # [T, L, B, 3, W]
+    y = torch.cat([ops.jac_add(a, q[0, 0])[None], q[1:, 0]])  # [T, B, 3, W]
+    for j in range(1, L):
+        y = ops.jac_add(y, q[:, j])
+    while y.shape[0] > 1:                  # the partial sums left: s = 0, d, 2d, ...
+        y = ops.jac_add(y[0::2], y[1::2])
+    return _lm(y[0])
 
 
 # ------------------------------------------------------------------ kernels
@@ -428,19 +469,36 @@ def mixed_add(ops: CurveOps, acc, pts):
     return out
 
 
+MIXED_THREADS = (1, 2)                 # K6's threads per lane
+MIXED_THREADS_BY_WIDTH = {8: 1, 12: 2}
+
+
+def mixed_threads(W: int) -> int:
+    """K6's threads per lane at W words, the fastest at the kernel-test
+    widths (98,688 lanes at W = 8, 24,960 at W = 12; H100, PERF.md).  At
+    W = 12 two warps a lane group (6 multiplies deep, one wave) beat one
+    thread a lane (11 deep); at W = 8 the lanes fill the card, and one
+    thread a lane, with no exchange, wins.  It reads no device property."""
+    if W not in MIXED_THREADS_BY_WIDTH:
+        raise ValueError(f"K6 has no thread count for W = {W}")
+    return MIXED_THREADS_BY_WIDTH[W]
+
+
 def mixed_add_signed(ops: CurveOps, acc, pts, neg):
     """K6: as K5, with pts negated on lanes where neg [1, B] is non-zero (the
-    identity is detected before the negation)."""
+    identity is detected before the negation), with ``mixed_threads(W)``
+    threads per lane."""
     if acc.device.type == "cpu":
         return plain_mixed_add_signed(ops, acc, pts, neg)
     W = ops.W
     B = acc.shape[-1]
+    Tm = mixed_threads(W)
     check_tensor("acc", acc, (3, W, B))
     check_tensor("pts", pts, (2, W, B))
     check_tensor("neg", neg, (1, B))
     out = torch.empty_like(acc)
     rc = _kernel("mixed_add_signed", W)(
-        acc.data_ptr(), pts.data_ptr(), neg.data_ptr(), out.data_ptr(), B,
+        acc.data_ptr(), pts.data_ptr(), neg.data_ptr(), out.data_ptr(), B, Tm,
         _consts(ops), stream_of(acc),
     )
     raise_on(rc, "mixed_add_signed")
@@ -449,18 +507,22 @@ def mixed_add_signed(ops: CurveOps, acc, pts, neg):
 
 
 def jac_add_multi(ops: CurveOps, acc, qs):
-    """K7: acc [3, W, B] plus g projective points qs [3g, W, B], summed in
-    order -> the final accumulator [3, W, B]."""
+    """K7: acc [3, W, B] plus g projective points qs [3g, W, B] -> the sum
+    [3, W, B] (as a point; in the words of ``plain_jac_add_multi`` at the
+    same T), with ``multi_threads(B, g)`` threads per lane."""
     if acc.device.type == "cpu":
         return plain_jac_add_multi(ops, acc, qs)
     W = ops.W
     B = acc.shape[-1]
     g = qs.shape[0] // 3
+    T = multi_threads(B, g)
     check_tensor("acc", acc, (3, W, B))
     check_tensor("qs", qs, (3 * g, W, B))
+    if T not in MULTI_THREADS or g % T or T > max(g, 1):
+        raise ValueError(f"T = {T}: expected one of {MULTI_THREADS} dividing g = {g}")
     out = torch.empty_like(acc)
     rc = _kernel("jac_add_multi", W)(
-        acc.data_ptr(), qs.data_ptr(), out.data_ptr(), B, g, _consts(ops),
+        acc.data_ptr(), qs.data_ptr(), out.data_ptr(), B, g, T, _consts(ops),
         stream_of(acc),
     )
     raise_on(rc, "jac_add_multi")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times of one tree of the port, for comparing two trees on one card.
 
-    python3 bench_port.py [--root DIR] [--parts msm,ntt,prove,lm] [--prove] [--reps N]
+    python3 bench_port.py [--root DIR] [--parts msm,ntt,prove,lm,curve] [--prove] [--reps N]
 
 ``--root`` is the directory that holds the ``algoplonk_tpu_torch`` package
 to measure (default: this file's directory), so that a checkout of another
@@ -41,6 +41,13 @@ use and caches its test SRS under its own ``.cache/``.
 - ``lm``: the SquareChain at BN254 2^17 (the four-step quotient), compiled,
   one warm prove + self-verify, then one more under torch.profiler: its
   CUDA kernel launches by kind, its K9 launches and the busy share.
+- ``curve``: K5 (``mixed_add``), K6 (``mixed_add_signed``) and K7
+  (``jac_add_multi``, 16 steps) at the kernel-test shapes of chip_smoke.py
+  (K5 and K6 at one commit's phase-1 width, K7 at its phase-2a width: BN254
+  2^16 at W = 8, BLS12-381 2^14 at W = 12) on ``CommitInputs``; CUDA events
+  over ``--reps`` launches after one warm-up, at the wrapper's threads per
+  lane, and where the tree has a thread count for K6 or K7
+  (``mixed_threads``, ``multi_threads``) at every one of them too.
 
 The measuring code is this file's and the chip_smoke.py beside it, whatever
 ``--root`` names, so that both trees are measured by the same code.
@@ -104,6 +111,33 @@ def msm_part(torch, apt, reps, record):
                parts=split.parts, equal=got == want)
 
 
+def curve_part(torch, apt, reps, record):
+    from algoplonk_tpu_torch.ops import curve_kernels as ck
+    from algoplonk_tpu_torch.ops import msm as M
+
+    for curve, n in ((apt.BN254, (1 << 16) + 3), (apt.BLS12_381, (1 << 14) + 3)):
+        s = cs.CommitInputs(torch, random.Random(curve.fp.nbits), curve, n)
+        ops, W = s.ops, s.ops.W
+        acc, rows, sign, _ = s.k1_inputs(s.w1p)
+        aff = s.table[rows[0]].reshape(s.w1p, 2, W).permute(1, 2, 0).contiguous()
+        neg = sign[:1].to(torch.int32).contiguous()
+        acc2, qs = s.k2_inputs(s.wsbp)
+        record("mixed_add", W=W, lanes=s.w1p,
+               ms=cs.cuda_ms(lambda: ck.mixed_add(ops, acc, aff), reps))
+        for name, lanes, fn, chooser, choices, shape in (
+                ("mixed_add_signed", s.w1p, lambda: ck.mixed_add_signed(ops, acc, aff, neg),
+                 "mixed_threads", "MIXED_THREADS", (W,)),
+                ("jac_add_multi", s.wsbp, lambda: ck.jac_add_multi(ops, acc2, qs),
+                 "multi_threads", "MULTI_THREADS", (s.wsbp, M.SUPER))):
+            record(name, W=W, lanes=lanes, T="wrapper", ms=cs.cuda_ms(fn, reps))
+            if hasattr(ck, chooser):
+                picked = getattr(ck, chooser)(*shape)
+                for T in getattr(ck, choices):
+                    with cs.forced_threads(T, chooser):
+                        record(name, W=W, lanes=lanes, T=T, picked=T == picked,
+                               ms=cs.cuda_ms(fn, reps))
+
+
 def ntt_part(torch, apt, reps, record):
     import inspect
 
@@ -158,7 +192,7 @@ def lm_trace(torch, apt, record):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--parts", default="msm", help="comma list of msm, ntt, prove, lm")
+    ap.add_argument("--parts", default="msm", help="comma list of msm, ntt, prove, lm, curve")
     ap.add_argument("--prove", action="store_true", help="also compile and prove")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -193,6 +227,8 @@ def main() -> int:
 
     if "msm" in parts:
         msm_part(torch, apt, args.reps, record)
+    if "curve" in parts:
+        curve_part(torch, apt, args.reps, record)
     if "ntt" in parts:
         ntt_part(torch, apt, args.reps, record)
     if "lm" in parts:

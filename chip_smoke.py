@@ -23,7 +23,10 @@ result line):
    at the phase-1 and phase-3 widths; K2 is held to its plain version at
    every thread count per lane T and timed at every T at the phase-2a
    widths of the three commits (6,272 and 12,416 lanes at W = 8, 1,664 at
-   W = 12); the field kernels K8 (field_mul) and field_add_sub (add, sub,
+   W = 12); K6 at every thread count per lane T_m and K7 at every T (K6 at
+   the phase-1 width, K7 over 16 steps at the phase-2a width), each held
+   word for word to its plain version at that count and timed, the
+   wrapper's count marked; the field kernels K8 (field_mul) and field_add_sub (add, sub,
    neg) on each of the four fields at the prove's shapes (2^18 contiguous
    rows, K8 also with one multiplicand arbitrary below R, held to host
    integers; 256 rows against one element; an NTT stage's strided halves
@@ -103,7 +106,9 @@ under "passes"; K1's, K2's and the
 field kernels' other shapes are itemised under "shapes"; the field kernels'
 ms is at 2^18 contiguous rows, inputs from HBM), and the bound at
 those shapes: the larger of the bytes over HBM bandwidth and the 32-bit
-integer multiplies over the card's multiply rate.  No single PyTorch call
+integer multiplies over the card's multiply rate; "T" is the wrapper's
+thread count per lane (K2, K6, K7), and K6's and K7's "shapes" time every
+count.  No single PyTorch call
 computes any of these functions (multi-word modular arithmetic), so
 library_ms is null.  The last line is
 {"ok": true, "device": {...}}.
@@ -401,16 +406,37 @@ class CommitInputs:
 
 
 @contextlib.contextmanager
-def forced_threads(T: int):
-    """K2 runs T threads per lane inside the block, whatever the shape."""
+def forced_threads(T: int, chooser: str = "scan_threads"):
+    """The wrapper whose thread count ``chooser`` of curve_kernels picks
+    (K2 ``scan_threads``, K7 ``multi_threads``, K6 ``mixed_threads``) runs T
+    threads per lane, whatever the shape."""
     from algoplonk_tpu_torch.ops import curve_kernels as ck
 
-    saved = ck.scan_threads
-    ck.scan_threads = lambda B, g: T
+    saved = getattr(ck, chooser)
+    setattr(ck, chooser, lambda *shape: T)
     try:
         yield
     finally:
-        ck.scan_threads = saved
+        setattr(ck, chooser, saved)
+
+
+def every_thread_count(torch, name, kern, plain, choices, chooser, picked, suffix):
+    """``kern`` (one launch of kernel ``name``) at every thread count per
+    lane T of ``choices``, forced through ``chooser``: word for word equal
+    to ``plain(T)``, which launches nothing, and timed (CUDA events, 20
+    launches).  Returns [{"T", "picked", "ms"}]."""
+    shapes = []
+    for T in choices:
+        with forced_threads(T, chooser):
+            out_k = kern()
+            torch.cuda.synchronize()
+            want = plain_launches_nothing(lambda: plain(T), name + suffix)
+            if not torch.equal(out_k, want):
+                raise AssertionError(f"{name}{suffix} at T = {T} disagrees with its plain version")
+            shapes.append({"T": T, "picked": T == picked, "ms": cuda_ms(kern, 20)})
+    log(f"{name}{suffix}: exact at every T; by T (* the wrapper's): "
+        + ", ".join(f"T={x['T']}{'*' if x['picked'] else ''} {x['ms']:.4f} ms" for x in shapes))
+    return shapes
 
 
 def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=(), scan_E=()):
@@ -467,9 +493,15 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=(), scan_E
     check("mixed_add", lambda: ck.mixed_add(ops, acc, aff),
           lambda: ck.plain_mixed_add(ops, acc, aff), 20,
           w1p * MIXED_ADD_MULS, nbytes(acc, aff))
-    check("mixed_add_signed", lambda: ck.mixed_add_signed(ops, acc, aff, neg),
-          lambda: ck.plain_mixed_add_signed(ops, acc, aff, neg), 20,
-          w1p * MIXED_ADD_MULS, nbytes(acc, aff, neg))
+    # K6 at every T_m (exact against its plain version, which has no T_m),
+    # then checked and timed at the wrapper's
+    k6 = lambda: ck.mixed_add_signed(ops, acc, aff, neg)          # noqa: E731
+    k6_plain = lambda: ck.plain_mixed_add_signed(ops, acc, aff, neg)   # noqa: E731
+    k6_shapes = every_thread_count(torch, "mixed_add_signed", k6, lambda T: k6_plain(),
+                                   ck.MIXED_THREADS, "mixed_threads",
+                                   ck.mixed_threads(W), suffix)
+    check("mixed_add_signed", k6, k6_plain, 20, w1p * MIXED_ADD_MULS, nbytes(acc, aff, neg),
+          T=ck.mixed_threads(W), shapes=k6_shapes)
     # K2 at every T (exact against the plain scan in the same association),
     # then timed at every T at each phase-2a width, and checked at the
     # wrapper's T; K7 at the commit's width
@@ -505,10 +537,17 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=(), scan_E
                     f"{x['ms']:.4f} ms"
                     + (f" (plain {x['plain_ms']:.2f} ms)" if "plain_ms" in x else "")
                     for x in shapes))
+    # K7 at every T (exact against its plain version at the same T), then
+    # checked and timed at the wrapper's
+    k7_shapes = every_thread_count(
+        torch, "jac_add_multi", lambda: ck.jac_add_multi(ops, acc2, qs),
+        lambda T: ck.plain_jac_add_multi(ops, acc2, qs, T), ck.MULTI_THREADS,
+        "multi_threads", ck.multi_threads(wsbp, M.SUPER), suffix)
     check("jac_add_multi",
           lambda: ck.jac_add_multi(ops, acc2, qs),
           lambda: ck.plain_jac_add_multi(ops, acc2, qs), 20,
-          M.SUPER * wsbp * JAC_ADD_MULS, nbytes(acc2, qs))
+          M.SUPER * wsbp * JAC_ADD_MULS, nbytes(acc2, qs), T=ck.multi_threads(wsbp, M.SUPER),
+          shapes=k7_shapes)
     # K3 at phase-3/4 width, with p + p and p + (-p) lanes
     p3 = s.rand_proj(w2p)[0]
     q3 = s.rand_proj(w2p)[0]
@@ -1410,7 +1449,7 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on their path: {unlaunched}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "depth", "work_adds",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "T", "depth", "work_adds",
             "rounds_ms", "passes", "shapes", "host_us", "launches_on")
     line = [{key: k[key] for key in keys if key in k} for k in kernels]
     print(card, flush=True)

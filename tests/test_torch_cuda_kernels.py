@@ -272,6 +272,113 @@ def test_k5_k6_k7(cuda_device, curve):
                     lambda: ck.plain_jac_add_multi(ops, acc, qs))
 
 
+K7_LANES = 1001   # at every T, the last block and the last warp partly empty
+
+
+def curve_setup(curve, device, seed):
+    c = apt.fields.params.CURVES[curve]
+    ops = curve_ops(c, device)
+    table = ops.encode_affine(sample_points(random.Random(seed), c, 31) + [None])
+    return ops, table, torch.Generator().manual_seed(seed + 1)
+
+
+def affine_of(ops, out_lm):
+    return ops.decode_affine(ops.to_affine(out_lm.permute(2, 0, 1)))
+
+
+@pytest.mark.parametrize("T", ck.MULTI_THREADS)
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_k7_every_thread_count(monkeypatch, cuda_device, curve, T):
+    """K7 with T threads per lane equals its plain version at the same T
+    word for word, and T = 1 as points, at both widths: identity lanes,
+    doublings and cancellations at step 0, 16 steps."""
+    monkeypatch.setattr(ck, "multi_threads", lambda B, g: T)
+    ops, table, gen = curve_setup(curve, cuda_device, 30 + T)
+    acc = random_projective(ops, gen, table, K7_LANES)
+    qs = torch.cat([random_projective(ops, gen, table, K7_LANES) for _ in range(M.SUPER)])
+    qs[0:3, :, :64] = acc[:, :, :64]                              # doublings
+    qs[0:3, :, 64:128] = acc[:, :, 64:128]
+    qs[1, :, 64:128] = ops.f.neg(acc[1, :, 64:128].T).T           # cancellations
+    run_and_compare("jac_add_multi", lambda: ck.jac_add_multi(ops, acc, qs),
+                    lambda: ck.plain_jac_add_multi(ops, acc, qs, T))
+    assert affine_of(ops, ck.jac_add_multi(ops, acc, qs)) == affine_of(
+        ops, ck.plain_jac_add_multi(ops, acc, qs, 1))
+
+
+@pytest.mark.parametrize("g", [0, 1, 3, 6])
+def test_k7_steps_that_rule_out_thread_counts(monkeypatch, cuda_device, g):
+    """At g steps K7 takes every T of MULTI_THREADS that divides g (T = 1
+    at g = 0), word-equal to its plain version; the wrapper and the plain
+    version refuse the others."""
+    ops, table, gen = curve_setup("bn254", cuda_device, 40 + g)
+    acc = random_projective(ops, gen, table, K7_LANES)
+    qs = torch.cat([acc[:0]] + [random_projective(ops, gen, table, K7_LANES) for _ in range(g)])
+    for T in ck.MULTI_THREADS:
+        monkeypatch.setattr(ck, "multi_threads", lambda B, g, T=T: T)
+        if T <= max(g, 1) and g % T == 0:
+            run_and_compare("jac_add_multi", lambda: ck.jac_add_multi(ops, acc, qs),
+                            lambda: ck.plain_jac_add_multi(ops, acc, qs, T))
+        else:
+            with pytest.raises(ValueError):
+                ck.jac_add_multi(ops, acc, qs)
+            with pytest.raises(ValueError):
+                ck.plain_jac_add_multi(ops, acc, qs, T)
+
+
+def test_k6_k7_entries_refuse_bad_thread_counts(setup):
+    """The C entries return cudaErrorInvalidValue (1) and launch nothing for
+    a K7 T that is not a power of two <= 16 dividing g, or a K6 T_m outside
+    1-2."""
+    from algoplonk_tpu_torch.ops._build import stream_of
+
+    ops, table, gen = setup
+    acc = random_projective(ops, gen, table, 64)
+    qs = torch.cat([random_projective(ops, gen, table, 64) for _ in range(6)])
+    pts = ops.to_affine(acc.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    neg = torch.zeros((1, 64), dtype=torch.int32, device=acc.device)
+    out = torch.empty_like(acc)
+    k7, k6 = ck._kernel("jac_add_multi", ops.W), ck._kernel("mixed_add_signed", ops.W)
+    consts, stream = ck._consts(ops), stream_of(acc)
+    for g, T in ((6, 0), (6, 3), (6, 4), (6, 32), (0, 2), (16, 32)):
+        assert k7(acc.data_ptr(), qs.data_ptr(), out.data_ptr(), 64, g, T, consts, stream) == 1
+    for Tm in (0, 3, 4, -1):
+        assert k6(acc.data_ptr(), pts.data_ptr(), neg.data_ptr(), out.data_ptr(), 64, Tm,
+                  consts, stream) == 1
+    torch.cuda.synchronize()
+
+
+K6_LANES = {8: 98688, 12: 24960}   # the kernel-test path's widths (chip_smoke.py)
+
+
+@pytest.mark.parametrize("lanes", ["kernel-test", "ragged"])
+@pytest.mark.parametrize("Tm", ck.MIXED_THREADS)
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_k6_every_thread_count(monkeypatch, cuda_device, curve, Tm, lanes):
+    """K6 with T_m threads per lane equals plain_mixed_add_signed word for
+    word at both widths, at the kernel-test width and at 1,001 lanes: every
+    coordinate a residue over all of [0, p) with edge values, then on-curve
+    lanes: doublings, cancellations (the point negated by neg), identity
+    accumulators, and identity points with and without neg."""
+    monkeypatch.setattr(ck, "mixed_threads", lambda W: Tm)
+    ops, table, gen = curve_setup(curve, cuda_device, 50 + Tm)
+    f, W = ops.f, ops.W
+    B = K6_LANES[W] if lanes == "kernel-test" else K7_LANES
+    acc = random_residues(f, 3 * B, gen).reshape(3, B, W).permute(0, 2, 1).contiguous()
+    pts = random_residues(f, 2 * B, gen).reshape(2, B, W).permute(0, 2, 1).contiguous()
+    neg = torch.randint(0, 2, (1, B), generator=gen).to(torch.int32).to(cuda_device)
+    on_curve = random_projective(ops, gen, table, 256)             # identities among them
+    acc[:, :, :256] = on_curve
+    aff = ops.to_affine(on_curve.permute(2, 0, 1)).permute(1, 2, 0)
+    pts[:, :, :128] = aff[:, :, :128]
+    neg[0, :64] = 0                                                # doublings
+    neg[0, 64:128] = 1                                             # cancellations
+    pts[:, :, 128:136] = 0                                         # identity points
+    neg[0, 128:132] = 1
+    neg[0, 132:136] = 0
+    run_and_compare("mixed_add_signed", lambda: ck.mixed_add_signed(ops, acc, pts, neg),
+                    lambda: ck.plain_mixed_add_signed(ops, acc, pts, neg))
+
+
 @pytest.mark.parametrize("field", ["bn254_fr", "bn254_fp", "bls12_381_fr", "bls12_381_fp"])
 def test_k8_field_mul(cuda_device, field):
     c = apt.fields.params.CURVES[field.rsplit("_", 1)[0]]

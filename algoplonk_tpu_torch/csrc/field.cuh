@@ -240,7 +240,7 @@ __device__ __forceinline__ void mont_mul_raw(uint32_t* t, const uint32_t* a,
 
 // out = a b R^-1 mod p, canonical.  For a < R and b < p the pre-subtraction
 // value is below 2p, so one conditional subtraction makes it canonical; this
-// is what lets the canonicalising kernel take any W-word input.
+// is what lets K8 take one multiplicand anywhere below R.
 template <int W>
 __device__ __forceinline__ void mont_mul(uint32_t* out, const uint32_t* a,
                                          const uint32_t* b,

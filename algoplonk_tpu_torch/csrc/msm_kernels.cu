@@ -1,4 +1,4 @@
-// The four MSM kernels of the bucket scan (algoplonk_tpu_torch/ops/msm.py),
+// The three MSM kernels of the bucket scan (algoplonk_tpu_torch/ops/msm.py),
 // CUDA for sm_90a, bound to Python through a plain C interface (ctypes).
 //
 // They replace these Pallas TPU kernels of algoplonk_tpu/ops/curve_pallas.py:
@@ -6,8 +6,8 @@
 //   K2 pallas_jac_add_multi_scan     (:357) -> ap_jac_add_multi_scan
 //   K3 pallas_jac_add                (:292) -> ap_jac_add, and the chains of
 //      it that the MSM runs: ap_jac_add_window_scan, ap_window_combine
-//   K4 pallas_canon                  (:404) -> ap_canon (off the MSM's path:
-//      every curve kernel here stores canonical words)
+// Every one stores canonical words, so the MSM needs no K4 (pallas_canon,
+// :404), which curve_kernels.cu holds with the other off-path kernels.
 //
 // Layout, as on the TPU: limbs-major [coord, W, B] int32 words, lane b of
 // word w of coordinate k at (k * W + w) * B + b.  One thread owns one lane, so
@@ -55,7 +55,7 @@
 // Every kernel is a template on W.  The file is compiled once for W = 8
 // (BN254's fields) and once for W = 12 (BLS12-381's base field), and each
 // object exports its entry points under names that end in its width
-// (lanes.cuh: ap_canon_w8, ap_canon_w12).
+// (lanes.cuh: ap_jac_add_w8, ap_jac_add_w12).
 //
 // K1 also fuses the point gather that the TPU path staged through HBM
 // (algoplonk_tpu/ops/msm.py:271-273): it reads the [N+1, 2W] flat affine table
@@ -456,23 +456,6 @@ window_combine_kernel(const uint32_t* __restrict__ base,
   }
 }
 
-// K4: x [R, W, B] (any W-word values) -> canonical x mod p, one Montgomery
-// multiply by the Montgomery one per element.
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-canon_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-             int64_t rows, int64_t B, ap::CurveConsts<W> cc) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * B) return;
-  const int64_t r = i / B, b = i % B;
-  uint32_t v[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) v[w] = x[(r * W + w) * B + b];
-  ap::mont_mul<W>(v, v, cc.f.one, cc.f);
-#pragma unroll
-  for (int w = 0; w < W; ++w) out[(r * W + w) * B + b] = v[w];
-}
-
 }  // namespace
 
 extern "C" {
@@ -559,16 +542,6 @@ int AP_ENTRY(ap_window_combine)(const void* base, const void* in_block,
                                   (cudaStream_t)stream>>>(
         (const uint32_t*)base, (const uint32_t*)in_block, (uint32_t*)out, B, D,
         c, cc);
-  return (int)cudaGetLastError();
-}
-
-int AP_ENTRY(ap_canon)(const void* x, void* out, int64_t rows, int64_t B,
-                       const void* consts, void* stream) {
-  const auto cc = *static_cast<const ap::CurveConsts<AP_W>*>(consts);
-  if (rows * B > 0)
-    canon_kernel<AP_W><<<blocks_for(rows * B), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (uint32_t*)out, rows, B, cc);
   return (int)cudaGetLastError();
 }
 

@@ -99,9 +99,9 @@ def _set_signatures(lib) -> None:
         "ap_jac_add": [vp, vp, vp, i64, vp, vp],
         "ap_jac_add_window_scan": [vp, vp, i64, i32, i32, vp, vp],
         "ap_window_combine": [vp, vp, vp, i64, i32, i32, vp, vp],
-        "ap_canon": [vp, vp, i64, i64, vp, vp],
+        "ap_canon": [vp, vp, i64, i64, i32, vp, vp],
         "ap_consts_words": [],
-        "ap_mixed_add": [vp, vp, vp, i64, vp, vp],
+        "ap_mixed_add": [vp, vp, vp, i64, i32, vp, vp],
         "ap_mixed_add_signed": [vp, vp, vp, vp, i64, i32, vp, vp],
         "ap_jac_add_multi": [vp, vp, vp, i64, i32, i32, vp, vp],
         "ap_field_mul": [vp, vp, vp, i64, i64, i64, i64, i64, i64, vp, vp],

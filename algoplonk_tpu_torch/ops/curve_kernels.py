@@ -1,5 +1,5 @@
-"""Wrappers of the curve kernels (csrc/msm_kernels.cu, csrc/curve_kernels.cu),
-each beside its plain PyTorch version.
+"""Wrappers of the curve kernels (csrc/msm_kernels.cu: K1-K3;
+csrc/curve_kernels.cu: K4-K7), each beside its plain PyTorch version.
 
 Counterparts of the reference ``ops/curve_pallas.py`` factories:
 
@@ -33,13 +33,18 @@ not call K5-K7 either.  Every curve kernel takes limbs-major
 ``[coord, W, B]`` int32 (lane axis last), as the TPU kernels take it, and
 is built for W = 8 (BN254) and W = 12 (BLS12-381's Fp).
 
-The curve kernels run a lazy field core (values below 2p, made canonical at
-the store), valid only for a field with 4p < R; ``check_lazy_headroom``
-refuses any other when the constants are packed.  K2 and K7 run ``T``
+The curve kernels K1-K3 and K5-K7 run a lazy field core (values below 2p,
+made canonical at the store), valid only for a field with 4p < R;
+``check_lazy_headroom`` refuses any other when the constants are packed.
+K4 does no field arithmetic: any W-word x is below 2^S p (S =
+``canon_steps``: 3 for BN254's Fp, 4 for BLS12-381's), so x mod p is a
+ladder of S conditional subtractions of 2^(S-1) p, ..., 2p, p, which its
+plain version runs on the words as the kernel does.  K2 and K7 run ``T``
 threads per lane (``scan_threads``, ``multi_threads``: functions of the lane
 and step counts alone) and re-associate the scan or the sum; each plain
 version takes the same T and follows the same association, so the two stay
-equal word for word.  K6 spreads each mixed add over ``mixed_threads(W)``
+equal word for word.  K5 and K6 are one kernel (K6 negates the point on
+flagged lanes) that spreads each mixed add over ``mixed_threads(W)``
 threads (one warp per role of ``ap::mixed_add_roles``), every product the
 same operation on the same operands, so its words are the plain version's
 at every count.
@@ -47,7 +52,8 @@ at every count.
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
 kernel or raises, with no fallback.  The plain versions compute on the
 curve's plain twin (``CurveOps.as_plain``), whose field ops are plain torch,
-so a plain version launches no kernel on any device.  Each wrapper counts
+so a plain version launches no kernel on any device (K4's computes on the words
+alone).  Each wrapper counts
 its kernel launches in ``LAUNCHES`` (by kernel) and ``LAUNCHES_BY_WIDTH``
 (by kernel and W); plain calls are not counted.
 """
@@ -172,9 +178,36 @@ def plain_jac_add(ops: CurveOps, p, q):
     return _lm(ops.as_plain().jac_add(_bm(p), _bm(q)))
 
 
+def canon_steps(wf: WordField) -> int:
+    """K4's ladder length for a field of W words: the bit length of the
+    largest quotient floor((2^(32 W) - 1) / p) of a W-word value, so that
+    every such value is below 2^steps p."""
+    return ((wf.R - 1) // wf.modulus).bit_length()
+
+
+def canon_ladder(wf: WordField) -> list[int]:
+    """The multiples K4 subtracts, largest first: 2^j p, j = steps - 1 .. 0."""
+    return [wf.modulus << j for j in reversed(range(canon_steps(wf)))]
+
+
+_WORD = (1 << 32) - 1
+
+
 def plain_canon(ops: CurveOps, x):
-    f = ops.as_plain().f
-    return f.reduce(f.mul(x.transpose(1, 2), f.one)).transpose(1, 2).contiguous()
+    """K4's plain version: x [R, W, B] (any W-word values) -> x mod p by the
+    kernel's ladder, on the words: for each multiple m of ``canon_ladder``
+    a borrow chain computes x - m, which is kept where it did not borrow
+    (x >= m)."""
+    W = ops.W
+    v = x.to(torch.int64) & _WORD                             # [R, W, B]
+    for m in canon_ladder(ops.wf):
+        borrow, d = 0, []
+        for w in range(W):
+            t = v[:, w] - ((m >> (32 * w)) & _WORD) - borrow
+            borrow = (t < 0).to(torch.int64)
+            d.append(t & _WORD)
+        v = torch.where(borrow[:, None].bool(), v, torch.stack(d, dim=1))
+    return (v - ((v >> 31) << 32)).to(torch.int32)
 
 
 def inf_lm(ops: CurveOps, w: int):
@@ -437,51 +470,69 @@ def window_combine(ops: CurveOps, base, in_block, nw: int, c: int):
     return out
 
 
+def _canon_ladder(ops: CurveOps):
+    """(steps, the ladder's words in host memory) for K4 on the curve's base
+    field."""
+    key = ("canon", ops.curve.name)
+    got = _CONSTS.get(key)
+    if got is None:
+        words = ints_to_words(canon_ladder(ops.wf), ops.W).reshape(-1)
+        got = _CONSTS[key] = (canon_steps(ops.wf),
+                              (ctypes.c_int32 * words.size)(*words.tolist()))
+    return got
+
+
 def canon(ops: CurveOps, x):
-    """K4: [R, W, B] words (any W-word values) -> canonical residues."""
+    """K4: [R, W, B] words (any W-word values) -> canonical residues, by a
+    ladder of ``canon_steps`` conditional subtractions; the kernel refuses
+    a ladder length other than the one it was compiled with."""
     if x.device.type == "cpu":
         return plain_canon(ops, x)
     W = ops.W
     R, B = x.shape[0], x.shape[-1]
     check_tensor("x", x, (R, W, B))
     out = torch.empty_like(x)
-    rc = _kernel("canon", W)(x.data_ptr(), out.data_ptr(), R, B, _consts(ops), stream_of(x))
+    steps, ladder = _canon_ladder(ops)
+    rc = _kernel("canon", W)(x.data_ptr(), out.data_ptr(), R, B, steps, ladder, stream_of(x))
     raise_on(rc, "canon")
     _count("canon", W)
     return out
 
 
-def mixed_add(ops: CurveOps, acc, pts):
-    """K5: acc [3, W, B] plus affine pts [2, W, B] ((0, 0) is the identity)
-    -> [3, W, B]."""
-    if acc.device.type == "cpu":
-        return plain_mixed_add(ops, acc, pts)
-    W = ops.W
-    B = acc.shape[-1]
-    check_tensor("acc", acc, (3, W, B))
-    check_tensor("pts", pts, (2, W, B))
-    out = torch.empty_like(acc)
-    rc = _kernel("mixed_add", W)(
-        acc.data_ptr(), pts.data_ptr(), out.data_ptr(), B, _consts(ops), stream_of(acc)
-    )
-    raise_on(rc, "mixed_add")
-    _count("mixed_add", W)
-    return out
-
-
-MIXED_THREADS = (1, 2)                 # K6's threads per lane
+MIXED_THREADS = (1, 2)                 # K5's and K6's threads per lane
 MIXED_THREADS_BY_WIDTH = {8: 1, 12: 2}
 
 
 def mixed_threads(W: int) -> int:
-    """K6's threads per lane at W words, the fastest at the kernel-test
-    widths (98,688 lanes at W = 8, 24,960 at W = 12; H100, PERF.md).  At
-    W = 12 two warps a lane group (6 multiplies deep, one wave) beat one
-    thread a lane (11 deep); at W = 8 the lanes fill the card, and one
-    thread a lane, with no exchange, wins.  It reads no device property."""
+    """K5's and K6's threads per lane at W words, the fastest at the
+    kernel-test widths (98,688 lanes at W = 8, 24,960 at W = 12; H100,
+    PERF.md).  At W = 12 two warps a lane group (6 multiplies deep, one
+    wave) beat one thread a lane (11 deep); at W = 8 the lanes fill the
+    card, and one thread a lane, with no exchange, wins.  It reads no
+    device property."""
     if W not in MIXED_THREADS_BY_WIDTH:
-        raise ValueError(f"K6 has no thread count for W = {W}")
+        raise ValueError(f"K5 and K6 have no thread count for W = {W}")
     return MIXED_THREADS_BY_WIDTH[W]
+
+
+def mixed_add(ops: CurveOps, acc, pts):
+    """K5: acc [3, W, B] plus affine pts [2, W, B] ((0, 0) is the identity)
+    -> [3, W, B], with ``mixed_threads(W)`` threads per lane (K6's kernel
+    without the sign)."""
+    if acc.device.type == "cpu":
+        return plain_mixed_add(ops, acc, pts)
+    W = ops.W
+    B = acc.shape[-1]
+    Tm = mixed_threads(W)
+    check_tensor("acc", acc, (3, W, B))
+    check_tensor("pts", pts, (2, W, B))
+    out = torch.empty_like(acc)
+    rc = _kernel("mixed_add", W)(
+        acc.data_ptr(), pts.data_ptr(), out.data_ptr(), B, Tm, _consts(ops), stream_of(acc)
+    )
+    raise_on(rc, "mixed_add")
+    _count("mixed_add", W)
+    return out
 
 
 def mixed_add_signed(ops: CurveOps, acc, pts, neg):

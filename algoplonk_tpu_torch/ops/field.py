@@ -206,11 +206,6 @@ class FieldOps:
         diff, borrow = _sub_borrow(d, self._p)
         return torch.where(borrow.unsqueeze(-1), d, diff)
 
-    def reduce(self, a):
-        """One conditional subtraction of p: words below 2p -> canonical.
-        Plain torch on every device (only K4's plain version calls it)."""
-        return _from_digits(self._cond_sub_p(_to_digits(a)))
-
     # ---------------------------------------------------------------- ops
 
     def add(self, a, b):

@@ -41,13 +41,18 @@ use and caches its test SRS under its own ``.cache/``.
 - ``lm``: the SquareChain at BN254 2^17 (the four-step quotient), compiled,
   one warm prove + self-verify, then one more under torch.profiler: its
   CUDA kernel launches by kind, its K9 launches and the busy share.
-- ``curve``: K5 (``mixed_add``), K6 (``mixed_add_signed``) and K7
+- ``curve``: K4 (``canon``) at one commit's phase-3 width and at 2^20
+  lanes (chip_smoke.py's ``canon_words``: three rows of random words with
+  the ladder's edges), K5 (``mixed_add``), K6 (``mixed_add_signed``) and K7
   (``jac_add_multi``, 16 steps) at the kernel-test shapes of chip_smoke.py
   (K5 and K6 at one commit's phase-1 width, K7 at its phase-2a width: BN254
-  2^16 at W = 8, BLS12-381 2^14 at W = 12) on ``CommitInputs``; CUDA events
-  over ``--reps`` launches after one warm-up, at the wrapper's threads per
-  lane, and where the tree has a thread count for K6 or K7
-  (``mixed_threads``, ``multi_threads``) at every one of them too.
+  2^16 at W = 8, BLS12-381 2^14 at W = 12) on ``CommitInputs``; device
+  milliseconds per launch from a torch.profiler trace (``device_ms``; K4's
+  with the L2 flushed before each launch) and CUDA events over ``--reps``
+  launches after one warm-up (``events_ms``, which read the host's launch
+  rate too), at the wrapper's threads per lane, and where the tree's K5, K6
+  or K7 takes a thread count (``mixed_threads``, ``multi_threads``) at
+  every one of them too.
 
 The measuring code is this file's and the chip_smoke.py beside it, whatever
 ``--root`` names, so that both trees are measured by the same code.
@@ -112,30 +117,43 @@ def msm_part(torch, apt, reps, record):
 
 
 def curve_part(torch, apt, reps, record):
+    import inspect
+
     from algoplonk_tpu_torch.ops import curve_kernels as ck
     from algoplonk_tpu_torch.ops import msm as M
+
+    flush = torch.zeros(cs.L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+
+    def times(fn, kernel, **kw):
+        return dict(ms=cs.device_ms(torch, fn, reps, kernel, **kw),
+                    events_ms=cs.cuda_ms(fn, reps))
 
     for curve, n in ((apt.BN254, (1 << 16) + 3), (apt.BLS12_381, (1 << 14) + 3)):
         s = cs.CommitInputs(torch, random.Random(curve.fp.nbits), curve, n)
         ops, W = s.ops, s.ops.W
+        for lanes in (s.w2p, cs.CANON_LANES):
+            x = cs.canon_words(torch, ops, lanes, s.g)
+            record("canon", W=W, lanes=lanes,
+                   **times(lambda: ck.canon(ops, x), "canon", flush=flush))
         acc, rows, sign, _ = s.k1_inputs(s.w1p)
         aff = s.table[rows[0]].reshape(s.w1p, 2, W).permute(1, 2, 0).contiguous()
         neg = sign[:1].to(torch.int32).contiguous()
         acc2, qs = s.k2_inputs(s.wsbp)
-        record("mixed_add", W=W, lanes=s.w1p,
-               ms=cs.cuda_ms(lambda: ck.mixed_add(ops, acc, aff), reps))
-        for name, lanes, fn, chooser, choices, shape in (
-                ("mixed_add_signed", s.w1p, lambda: ck.mixed_add_signed(ops, acc, aff, neg),
+        for name, lanes, fn, kernel, chooser, choices, shape in (
+                ("mixed_add", s.w1p, lambda: ck.mixed_add(ops, acc, aff), "mixed_add",
                  "mixed_threads", "MIXED_THREADS", (W,)),
+                ("mixed_add_signed", s.w1p, lambda: ck.mixed_add_signed(ops, acc, aff, neg),
+                 "mixed_add", "mixed_threads", "MIXED_THREADS", (W,)),
                 ("jac_add_multi", s.wsbp, lambda: ck.jac_add_multi(ops, acc2, qs),
-                 "multi_threads", "MULTI_THREADS", (s.wsbp, M.SUPER))):
-            record(name, W=W, lanes=lanes, T="wrapper", ms=cs.cuda_ms(fn, reps))
-            if hasattr(ck, chooser):
+                 "jac_add_multi", "multi_threads", "MULTI_THREADS", (s.wsbp, M.SUPER))):
+            record(name, W=W, lanes=lanes, T="wrapper", **times(fn, kernel))
+            wrapper = getattr(ck, name)
+            if hasattr(ck, chooser) and chooser in inspect.getsource(wrapper):
                 picked = getattr(ck, chooser)(*shape)
                 for T in getattr(ck, choices):
                     with cs.forced_threads(T, chooser):
                         record(name, W=W, lanes=lanes, T=T, picked=T == picked,
-                               ms=cs.cuda_ms(fn, reps))
+                               **times(fn, kernel))
 
 
 def ntt_part(torch, apt, reps, record):

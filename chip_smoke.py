@@ -8,10 +8,13 @@ result line):
 
 1. build the kernels from algoplonk_tpu_torch/csrc with nvcc (sm_90a, one
    process per source and width) and hold each against its plain PyTorch
-   version, word for word (tolerance: exact): K1-K4 and K5-K7 at W = 8 on random
+   version, word for word (tolerance: exact): K1-K7 at W = 8 on random
    valid points at the lane widths a BN254 2^16 commit gives K1-K4 (c = 11,
    K = 16), and at W = 12 at the widths of a BLS12-381 2^14 commit, with
-   identity, doubling and cancelling lanes; K3's window scan over the 24
+   identity, doubling and cancelling lanes; K4 on arbitrary words with the
+   edges of its ladder (k p - 1, k p, k p + 1, 2^(32 W) - 1) at the phase-3
+   width and at 2^20 lanes, where its bytes bound is far above a launch's
+   floor; K3's window scan over the 24
    windows of the super sums (E = 257 and 513 at W = 8, the 2^16 and 2^17
    commits; E = 65 at W = 12), beside the same scan run as one K3 launch
    per round (the MSM's scan before it had its own kernel), and K3's phase
@@ -23,10 +26,13 @@ result line):
    at the phase-1 and phase-3 widths; K2 is held to its plain version at
    every thread count per lane T and timed at every T at the phase-2a
    widths of the three commits (6,272 and 12,416 lanes at W = 8, 1,664 at
-   W = 12); K6 at every thread count per lane T_m and K7 at every T (K6 at
-   the phase-1 width, K7 over 16 steps at the phase-2a width), each held
-   word for word to its plain version at that count and timed, the
-   wrapper's count marked; the field kernels K8 (field_mul) and field_add_sub (add, sub,
+   W = 12); K5 and K6 at every thread count per lane T_m and K7 at every T
+   (K5 and K6 at the phase-1 width, K7 over 16 steps at the phase-2a
+   width), each held word for word to its plain version at that count and
+   timed, the wrapper's count marked; K4, K5 and K6 timed on the device
+   (torch.profiler; K4 with the L2 flushed before each launch, as its
+   bytes bound assumes) beside CUDA events over back-to-back launches,
+   which read the host's launch rate too; the field kernels K8 (field_mul) and field_add_sub (add, sub,
    neg) on each of the four fields at the prove's shapes (2^18 contiguous
    rows, K8 also with one multiplicand arbitrary below R, held to host
    integers; 256 rows against one element; an NTT stage's strided halves
@@ -88,10 +94,10 @@ result line):
    commit MSM;
 7. the kernel-test path of K4-K8 (the counterpart of the reference's
    tests/test_pallas_kernels.py), with the counts zeroed just before it:
-   on each curve, K4 on arbitrary words against its plain version and host
-   integers, K5, K6 and K7 on identity, doubling and cancelling lanes
-   against host EC arithmetic, and K8 on both of its fields against host
-   integers.
+   on each curve, K4 on arbitrary words and the edges of its ladder against
+   its plain version and host integers, K5, K6 and K7 on identity, doubling
+   and cancelling lanes against host EC arithmetic, and K8 on both of its
+   fields against host integers.
 
 Output: timings on stdout; before the last line the card's name and power
 limit, then a JSON line of per-kernel numbers: launches from the path that
@@ -102,13 +108,14 @@ or the kernel-test path's for a field that prove does not compute in), the
 time of
 kernel and plain version at phase 1's shapes (K9's ms and plain_ms are the
 sums over BN254's four main-path passes, every pass of both fields itemised
-under "passes"; K1's, K2's and the
+under "passes"; K1's, K2's, K4's and the
 field kernels' other shapes are itemised under "shapes"; the field kernels'
-ms is at 2^18 contiguous rows, inputs from HBM), and the bound at
-those shapes: the larger of the bytes over HBM bandwidth and the 32-bit
-integer multiplies over the card's multiply rate; "T" is the wrapper's
-thread count per lane (K2, K6, K7), and K6's and K7's "shapes" time every
-count.  No single PyTorch call
+ms is at 2^18 contiguous rows, inputs from HBM; K4's, K5's and K6's ms is
+device time, with CUDA events over back-to-back launches as "events_ms"),
+and the bound at those shapes: the larger of the bytes over HBM bandwidth
+and the 32-bit integer multiplies over the card's multiply rate (K4 does
+none); "T" is the wrapper's thread count per lane (K2, K5, K6, K7), and
+K5's, K6's and K7's "shapes" time every count.  No single PyTorch call
 computes any of these functions (multi-word modular arithmetic), so
 library_ms is null.  The last line is
 {"ok": true, "device": {...}}.
@@ -130,6 +137,7 @@ BLS_LOG_N = 14    # the BLS12-381 path: the Ethereum KZG ceremony's cap
 BLS_MSM_POINTS = 1 << 15   # every G1 point of that ceremony
 HOST_PREFIX = 4096         # points checked against the host Pippenger
 TRACE_PADS = (0.02, 0.25, 1.0, 3.0)   # idle seconds around a traced call, by try
+TRACE_LEAD = 5                        # uncounted launches at the start of a timing trace
 MSM_SRC = "algoplonk_tpu_torch/csrc/msm_kernels.cu"
 CURVE_SRC = "algoplonk_tpu_torch/csrc/curve_kernels.cu"
 FIELD_SRC = "algoplonk_tpu_torch/csrc/field_kernels.cu"
@@ -137,7 +145,7 @@ NTT_SRC = "algoplonk_tpu_torch/csrc/ntt_kernels.cu"
 SOURCE = {
     "mixed_add_signed_multi": MSM_SRC, "jac_add_multi_scan": MSM_SRC,
     "jac_add": MSM_SRC, "jac_add_window_scan": MSM_SRC, "window_combine": MSM_SRC,
-    "canon": MSM_SRC, "mixed_add": CURVE_SRC,
+    "canon": CURVE_SRC, "mixed_add": CURVE_SRC,
     "mixed_add_signed": CURVE_SRC, "jac_add_multi": CURVE_SRC,
     "field_mul": FIELD_SRC, "field_add_sub": FIELD_SRC, "ntt_pass": NTT_SRC,
 }
@@ -185,9 +193,12 @@ def device_ms(torch, fn, reps: int, kernel: str, flush=None) -> float:
     as a bytes bound over HBM bandwidth assumes.
 
     On the card the profiler has lost the records of a trace's first
-    launches, and once every record of three short traces in a row, so the
-    launches run between idle pads (TRACE_PADS, longer at each try) and a
-    trace that lacks some is taken again."""
+    launches (3 of 20 in a row, in a long process), and once every record
+    of three short traces in a row, and once returned 20 records whose mean
+    was half the kernel's time.  So each trace runs TRACE_LEAD uncounted
+    launches first and the last reps records are read; the launches run
+    between idle pads (TRACE_PADS, longer at each try), and a trace with
+    fewer records, or with one below half their median, is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -195,18 +206,21 @@ def device_ms(torch, fn, reps: int, kernel: str, flush=None) -> float:
     for pad in TRACE_PADS:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(pad)
-            for _ in range(reps):
+            for _ in range(TRACE_LEAD + reps):
                 if flush is not None:
                     flush.sum()
                 fn()
             torch.cuda.synchronize()
             time.sleep(pad)
-        spans = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == torch.autograd.DeviceType.CUDA and kernel in e.name()]
-        if len(spans) == reps:
-            return sum(spans) * 1e-6 / reps
-        log(f"device_ms: {len(spans)} of {reps} {kernel} launches in the trace; again")
-    raise AssertionError(f"expected {reps} {kernel} launches in the trace, found {len(spans)}")
+        spans = sorted((e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA and kernel in e.name())
+        last = [d for _, d in spans[-reps:]]
+        if len(last) == reps and 2 * min(last) >= sorted(last)[reps // 2]:
+            return sum(last) * 1e-6 / reps
+        log(f"device_ms: {len(spans)} of {TRACE_LEAD + reps} {kernel} launches in the trace"
+            + (f", spans {min(last)}-{max(last)} ns" if last else "") + "; again")
+    raise AssertionError(f"expected {reps} consistent {kernel} launches in the trace, "
+                         f"found {len(spans)}")
 
 
 def host_seconds(torch, fn, calls: int) -> float:
@@ -420,11 +434,13 @@ def forced_threads(T: int, chooser: str = "scan_threads"):
         setattr(ck, chooser, saved)
 
 
-def every_thread_count(torch, name, kern, plain, choices, chooser, picked, suffix):
+def every_thread_count(torch, name, kern, plain, choices, chooser, picked, suffix,
+                       device=None):
     """``kern`` (one launch of kernel ``name``) at every thread count per
     lane T of ``choices``, forced through ``chooser``: word for word equal
     to ``plain(T)``, which launches nothing, and timed (CUDA events, 20
-    launches).  Returns [{"T", "picked", "ms"}]."""
+    launches; with ``device``, a part of the kernel's name, also device_ms
+    over 20).  Returns [{"T", "picked", "ms"[, "device_ms"]}]."""
     shapes = []
     for T in choices:
         with forced_threads(T, chooser):
@@ -434,8 +450,12 @@ def every_thread_count(torch, name, kern, plain, choices, chooser, picked, suffi
             if not torch.equal(out_k, want):
                 raise AssertionError(f"{name}{suffix} at T = {T} disagrees with its plain version")
             shapes.append({"T": T, "picked": T == picked, "ms": cuda_ms(kern, 20)})
+            if device:
+                shapes[-1]["device_ms"] = device_ms(torch, kern, 20, device)
     log(f"{name}{suffix}: exact at every T; by T (* the wrapper's): "
-        + ", ".join(f"T={x['T']}{'*' if x['picked'] else ''} {x['ms']:.4f} ms" for x in shapes))
+        + ", ".join(f"T={x['T']}{'*' if x['picked'] else ''} {x['ms']:.4f} ms"
+                    + (f" (device {x['device_ms']:.4f} ms)" if device else "")
+                    for x in shapes))
     return shapes
 
 
@@ -456,16 +476,25 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=(), scan_E
     log(f"[{curve.name}] kernel widths at W = {W}: w1p={w1p} w2p={w2p} wsbp={wsbp}")
     results = []
 
-    def check(name, kern, plain, reps, montmuls, moved, **extra):
+    def check(name, kern, plain, reps, montmuls, moved, device=None, flush=None, **extra):
+        """kern against plain, word for word, and timed: by CUDA events over
+        reps launches, or with ``device`` (a part of the kernel's name) by
+        device_ms (the L2 flushed before each launch with ``flush``), the
+        events' time then kept as "events_ms"."""
         out_k = kern()
         torch.cuda.synchronize()
         out_p = plain_launches_nothing(plain, name + suffix)
         diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
-        ms = cuda_ms(kern, reps)
+        ms = events_ms = cuda_ms(kern, reps)
+        if device:
+            ms = device_ms(torch, kern, 20, device, flush)
+            extra["events_ms"] = events_ms
         plain_ms = cuda_ms(plain, 1)
         bound_ms, bound_by = bound(W, montmuls, moved + nbytes(out_k))
-        log(f"{name}{suffix}: exact={diff == 0} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"{name}{suffix}: exact={diff == 0} kernel {ms:.4f} ms"
+            + (f" on the device ({events_ms:.4f} ms a launch back to back)" if device else "")
+            + f", plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{ms / bound_ms:.2f}x")
         if diff != 0:
             raise AssertionError(f"{name}{suffix}: kernel disagrees with its plain version")
         results.append({"name": name + suffix, "route": "cuda", "source": SOURCE[name],
@@ -487,21 +516,21 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=(), scan_E
     results[-1]["shapes"][0]["ms"] = results[-1]["ms"]
     log(f"mixed_add_signed_multi{suffix} on the {nrows}-row table: w1p={w1p} "
         f"{results[-1]['ms']:.4f} ms, w2p={w2p} {k1_w2p:.4f} ms")
-    # K5 and K6 at the same width: one step, the gathered point given
+    # K5 and K6 (one kernel) at the same width: one step, the gathered
+    # point given; each at every T_m (exact against its plain version, which
+    # has no T_m), then checked and timed at the wrapper's, on the device
     aff = pts_flat[rows[0]].reshape(w1p, 2, W).permute(1, 2, 0).contiguous()
     neg = sign[:1].to(torch.int32).contiguous()
-    check("mixed_add", lambda: ck.mixed_add(ops, acc, aff),
-          lambda: ck.plain_mixed_add(ops, acc, aff), 20,
-          w1p * MIXED_ADD_MULS, nbytes(acc, aff))
-    # K6 at every T_m (exact against its plain version, which has no T_m),
-    # then checked and timed at the wrapper's
-    k6 = lambda: ck.mixed_add_signed(ops, acc, aff, neg)          # noqa: E731
-    k6_plain = lambda: ck.plain_mixed_add_signed(ops, acc, aff, neg)   # noqa: E731
-    k6_shapes = every_thread_count(torch, "mixed_add_signed", k6, lambda T: k6_plain(),
-                                   ck.MIXED_THREADS, "mixed_threads",
-                                   ck.mixed_threads(W), suffix)
-    check("mixed_add_signed", k6, k6_plain, 20, w1p * MIXED_ADD_MULS, nbytes(acc, aff, neg),
-          T=ck.mixed_threads(W), shapes=k6_shapes)
+    for name, kern, plain, moved in (
+            ("mixed_add", lambda: ck.mixed_add(ops, acc, aff),
+             lambda: ck.plain_mixed_add(ops, acc, aff), nbytes(acc, aff)),
+            ("mixed_add_signed", lambda: ck.mixed_add_signed(ops, acc, aff, neg),
+             lambda: ck.plain_mixed_add_signed(ops, acc, aff, neg), nbytes(acc, aff, neg))):
+        shapes = every_thread_count(torch, name, kern, lambda T, plain=plain: plain(),
+                                    ck.MIXED_THREADS, "mixed_threads", ck.mixed_threads(W),
+                                    suffix, device="mixed_add")
+        check(name, kern, plain, 20, w1p * MIXED_ADD_MULS, moved, device="mixed_add",
+              T=ck.mixed_threads(W), shapes=shapes)
     # K2 at every T (exact against the plain scan in the same association),
     # then timed at every T at each phase-2a width, and checked at the
     # wrapper's T; K7 at the commit's width
@@ -603,12 +632,40 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=(), scan_E
           nbytes(base, in_block), windows=nw, D=D, depth=c + 2)
     log(f"  {nw} windows of D = {D}: chain of {c + 2} dependent point operations "
         f"(2 adds, {c - 1} tree rounds, 1 add)")
-    # K4 on arbitrary W-word values
-    x4 = torch.randint(-2**31, 2**31, (3, W, w2p), generator=s.g, dtype=torch.int64)
-    x4 = x4.to(torch.int32).to(s.dev).contiguous()
-    check("canon", lambda: ck.canon(ops, x4), lambda: ck.plain_canon(ops, x4), 50,
-          3 * w2p, nbytes(x4))
+    # K4 on arbitrary W-word values with its ladder's edges, at the phase-3
+    # width (the reference's MSM ran it there) and at CANON_LANES, where its
+    # bytes bound is far above a launch's floor; on the device, the L2
+    # flushed before each launch: it does no multiply, so its bound is bytes
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=s.dev)
+    shapes = []
+    for lanes in (w2p, CANON_LANES):
+        x4 = canon_words(torch, ops, lanes, s.g)
+        check("canon", lambda: ck.canon(ops, x4), lambda: ck.plain_canon(ops, x4), 50,
+              0, nbytes(x4), device="canon", flush=flush)
+        shapes.append({"lanes": lanes, **{k: results[-1][k] for k in (
+            "ms", "events_ms", "plain_ms", "bound_ms", "bound_by")}})
+    del results[-1]
+    results[-1]["shapes"] = shapes
     return results
+
+
+CANON_LANES = 1 << 20   # K4's large shape: [3, W, 2^20], 201 MB (W = 8) to 302 MB moved
+
+
+def canon_words(torch, ops, lanes: int, g):
+    """[3, W, lanes] random W-word values on ops' device, the first lanes of
+    row 0 the edges of K4's ladder: 0, 1, p - 1, p, k p - 1, k p and k p + 1
+    for every k up to floor((2^(32 W) - 1) / p), 2^(32 W) - 1, 2^(32 W - 1)."""
+    from algoplonk_tpu_torch.fields.words import ints_to_words
+
+    W, p = ops.W, ops.wf.modulus
+    top = (1 << (32 * W)) - 1
+    edges = [0, 1, p - 1, p, top, 1 << (32 * W - 1)]
+    edges += [v for k in range(1, top // p + 1) for v in (k * p - 1, k * p, k * p + 1)]
+    x = torch.randint(-2**31, 2**31, (3, W, lanes), generator=g, dtype=torch.int64)
+    x = x.to(torch.int32)
+    x[0, :, :len(edges)] = torch.from_numpy(ints_to_words(edges, W)).T
+    return x.to(ops.device).contiguous()
 
 
 def launch_counts():
@@ -844,9 +901,9 @@ def ntt_kernel_phase(torch, bound):
 
 def kernel_test_path(torch, curve, lanes: int = 1024):
     """K4-K8 on one curve as the reference's kernel tests drive them, each
-    result against host arithmetic: K4 on arbitrary words (and against its
-    plain version), K5 and K6 on identity, doubling and cancelling lanes,
-    K7 over four steps, K8 on both fields."""
+    result against host arithmetic: K4 on arbitrary words and its ladder's
+    edges (and against its plain version), K5 and K6 on identity, doubling
+    and cancelling lanes, K7 over four steps, K8 on both fields."""
     from algoplonk_tpu_torch.fields.words import words_to_ints
     from algoplonk_tpu_torch.host import fp as hfp
     from algoplonk_tpu_torch.ops import curve_kernels as ck
@@ -878,9 +935,7 @@ def kernel_test_path(torch, curve, lanes: int = 1024):
     def ints(words_lm):
         return words_to_ints(words_lm.transpose(1, 2).reshape(-1, ops.W).cpu().numpy())
 
-    gen = torch.Generator(device="cpu").manual_seed(curve.fp.nbits)
-    x = torch.randint(-2**31, 2**31, (3, ops.W, lanes), generator=gen, dtype=torch.int64)
-    x = x.to(torch.int32).to(ops.device).contiguous()
+    x = canon_words(torch, ops, lanes, torch.Generator(device="cpu").manual_seed(curve.fp.nbits))
     got = ck.canon(ops, x)
     ok = torch.equal(got, ck.plain_canon(ops, x))
     ok &= ints(got) == [v % curve.fp.modulus for v in ints(x)]
@@ -1449,7 +1504,7 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on their path: {unlaunched}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "T", "depth", "work_adds",
+            "events_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "T", "depth", "work_adds",
             "rounds_ms", "passes", "shapes", "host_us", "launches_on")
     line = [{key: k[key] for key in keys if key in k} for k in kernels]
     print(card, flush=True)

@@ -1,8 +1,10 @@
 """The CUDA kernels on the GPU, word for word against their plain PyTorch
-versions: the MSM kernels K1-K4 (csrc/msm_kernels.cu) at W = 8 (BN254)
+versions: the MSM kernels K1-K3 (csrc/msm_kernels.cu) at W = 8 (BN254)
 and W = 12 (BLS12-381), K1 on a commit-sized table, K2 at every thread
 count per lane, K3's window scan and phase-4 entries at the window sizes
-of the MSM, K5-K7 (csrc/curve_kernels.cu) on both curves, K8 and
+of the MSM, K4-K7 (csrc/curve_kernels.cu) on both curves (K4 on every
+edge of its ladder, by 16-byte vectors and one lane a thread; K5 and K6
+at every thread count per lane), K8 and
 field_add_sub (csrc/field_kernels.cu) on every field at every operand
 layout the prover gives them, and the NTT pass kernel K9
 (csrc/ntt_kernels.cu); then ``FieldOps`` on the card against the CPU's, the
@@ -35,7 +37,7 @@ from algoplonk_tpu_torch.ops.ntt import ntt_plan
 from algoplonk_tpu_torch.plonk import verify as V
 from algoplonk_tpu_torch.plonk.marshal import marshal_proof
 from algoplonk_tpu_torch.plonk.prove import Prover
-from torch_parity import cuda_device, pythagorean, sample_points  # noqa: F401
+from torch_parity import canon_edge_values, cuda_device, pythagorean, sample_points  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -377,6 +379,76 @@ def test_k6_every_thread_count(monkeypatch, cuda_device, curve, Tm, lanes):
     neg[0, 132:136] = 0
     run_and_compare("mixed_add_signed", lambda: ck.mixed_add_signed(ops, acc, pts, neg),
                     lambda: ck.plain_mixed_add_signed(ops, acc, pts, neg))
+
+
+@pytest.mark.parametrize("lanes", ["kernel-test", "ragged"])
+@pytest.mark.parametrize("Tm", ck.MIXED_THREADS)
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_k5_every_thread_count(monkeypatch, cuda_device, curve, Tm, lanes):
+    """K5 (K6's kernel without the sign) with T_m threads per lane equals
+    plain_mixed_add word for word at both widths, at the kernel-test width
+    and at 1,001 lanes: every coordinate a residue over all of [0, p) with
+    edge values, then on-curve lanes: doublings, cancellations, identity
+    accumulators, identity points, and both identities at once."""
+    monkeypatch.setattr(ck, "mixed_threads", lambda W: Tm)
+    ops, table, gen = curve_setup(curve, cuda_device, 70 + Tm)
+    f, W = ops.f, ops.W
+    B = K6_LANES[W] if lanes == "kernel-test" else K7_LANES
+    acc = random_residues(f, 3 * B, gen).reshape(3, B, W).permute(0, 2, 1).contiguous()
+    pts = random_residues(f, 2 * B, gen).reshape(2, B, W).permute(0, 2, 1).contiguous()
+    on_curve = random_projective(ops, gen, table, 256)             # identities among them
+    acc[:, :, :256] = on_curve
+    aff = ops.to_affine(on_curve.permute(2, 0, 1)).permute(1, 2, 0)
+    pts[:, :, :128] = aff[:, :, :128]                              # doublings
+    pts[1, :, 64:128] = f.neg(aff[1, :, 64:128].T).T               # cancellations
+    pts[:, :, 128:136] = 0                                         # identity points
+    acc[:, :, 136:144] = ck.inf_lm(ops, 8)                         # identity accumulators
+    pts[:, :, 140:144] = 0                                         # ... plus the identity
+    run_and_compare("mixed_add", lambda: ck.mixed_add(ops, acc, pts),
+                    lambda: ck.plain_mixed_add(ops, acc, pts))
+
+
+@pytest.mark.parametrize("layout", ["vectors", "ragged", "unaligned"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_k4_canon_edges(cuda_device, curve, layout):
+    """K4 equals its plain version word for word, and x mod p on host
+    integers, on every edge of its ladder (torch_parity.canon_edge_values)
+    and seeded random words, at both widths: 1,000 lanes (16-byte vectors of
+    4 lanes), 1,001 lanes and a view one word past an aligned buffer (one
+    lane a thread)."""
+    ops = curve_ops(apt.fields.params.CURVES[curve], cuda_device)
+    W, p = ops.W, ops.wf.modulus
+    B = K7_LANES if layout == "ragged" else 1000
+    vals = canon_edge_values(p, W, random.Random(60), 3 * B)
+    x = torch.from_numpy(ints_to_words(vals, W)).reshape(3, B, W).permute(0, 2, 1)
+    x = x.contiguous().to(cuda_device)
+    if layout == "unaligned":
+        x = unaligned(x)
+        assert x.data_ptr() % 16
+    run_and_compare("canon", lambda: ck.canon(ops, x), lambda: ck.plain_canon(ops, x))
+    got = ck.canon(ops, x).permute(0, 2, 1).reshape(-1, W).cpu().numpy()
+    assert words_to_ints(got) == [v % p for v in vals]
+
+
+def test_k4_k5_entries_refuse_bad_arguments(setup):
+    """The C entries return cudaErrorInvalidValue (1) and launch nothing for
+    a K4 ladder of another length than the width's kernel was compiled for,
+    or a K5 T_m outside 1-2."""
+    from algoplonk_tpu_torch.ops._build import stream_of
+
+    ops, table, gen = setup
+    acc = random_projective(ops, gen, table, 64)
+    pts = ops.to_affine(acc.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    out = torch.empty_like(acc)
+    stream = stream_of(acc)
+    k4, k5 = ck._kernel("canon", ops.W), ck._kernel("mixed_add", ops.W)
+    steps, ladder = ck._canon_ladder(ops)
+    for bad in (0, steps - 1, steps + 1):
+        assert k4(acc.data_ptr(), out.data_ptr(), 3, 64, bad, ladder, stream) == 1
+    for Tm in (0, 3, 4, -1):
+        assert k5(acc.data_ptr(), pts.data_ptr(), out.data_ptr(), 64, Tm, ck._consts(ops),
+                  stream) == 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("field", ["bn254_fr", "bn254_fp", "bls12_381_fr", "bls12_381_fp"])

@@ -102,6 +102,18 @@ def test_k6_mixed_add_signed_matches_xla(name):
 
 
 @pytest.mark.parametrize("name", CURVES)
+def test_k5_is_k6_without_the_sign(name):
+    """K5 and K6 share one kernel: K5's words are K6's with no lane
+    negated, on identity, doubling and cancelling lanes."""
+    curve, _ = curves(name)
+    ops = curve_ops(curve, "cpu")
+    P, Q, _ = operand_points(curve, 52)
+    acc, pts = lm(port_proj(ops, P)), lm(ops.encode_affine(Q))
+    no_sign = torch.zeros((1, B), dtype=torch.int32)
+    assert torch.equal(ck.mixed_add(ops, acc, pts), ck.mixed_add_signed(ops, acc, pts, no_sign))
+
+
+@pytest.mark.parametrize("name", CURVES)
 def test_k7_jac_add_multi_matches_xla(name):
     curve, jcurve = curves(name)
     ops, jops = curve_ops(curve, "cpu"), jax_curve_ops(jcurve)

@@ -43,6 +43,17 @@ def field_values(p: int, rng: random.Random, n: int = 13) -> list[int]:
     return [0, 1, p - 1, p - 2, 2] + [rng.randrange(p) for _ in range(n - 5)]
 
 
+def canon_edge_values(p: int, W: int, rng: random.Random, n: int) -> list[int]:
+    """n W-word values for K4 (canon): 0, 1, p - 1, p, and k p - 1, k p,
+    k p + 1 for every k up to the largest quotient floor((2^(32 W) - 1) /
+    p), 2^(32 W) - 1 and 2^(32 W - 1), then seeded random words."""
+    top = (1 << (32 * W)) - 1
+    edges = [0, 1, p - 1, p]
+    edges += [v for k in range(1, top // p + 1) for v in (k * p - 1, k * p, k * p + 1)]
+    edges += [top, 1 << (32 * W - 1)]
+    return edges + [rng.randrange(top + 1) for _ in range(n - len(edges))]
+
+
 def sample_points(rng: random.Random, curve, n: int) -> list:
     F = hfp.GF(curve.fp.modulus)
     return [hfp.ec_mul(F, curve.g1, rng.randrange(1, 1 << 64)) for _ in range(n)]

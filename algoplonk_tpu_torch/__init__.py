@@ -6,6 +6,7 @@ device:
 
     cc = compile(MyCircuit, BN254, SetupName.TEST_ONLY_BN254)   # on the card
     vp = cc.verify(MyCircuit(a=3, b=4, c=5))       # prove + self-verify
+    cc.write_puyapy_verifier("Verifier.py", ContractType.LOGIC_SIG)
     vp.export_proof_and_public_inputs("proof.bin", "public_inputs.bin")
 
 Both of AlgoPlonk's curves are served, BN254 and BLS12-381.  Every entry
@@ -50,6 +51,7 @@ from .plonk.keys import ProvingKey, VerifyingKey
 from .plonk.prove import Proof, Prover
 from .setups.registry import test_only_setup
 from .setups.srs import SetupName, get as get_setup, run_setup
+from .verifier.codegen import ContractType, write_python_code
 
 __all__ = [
     "BN254",
@@ -58,6 +60,7 @@ __all__ = [
     "PublicInput",
     "SecretInput",
     "SetupName",
+    "ContractType",
     "CompiledCircuit",
     "VerifiedProof",
     "compile",
@@ -85,6 +88,11 @@ class CompiledCircuit:
         if not verify_mod.verify(self.vk, proof, wit.public_values):
             raise RuntimeError("proof failed native verification")
         return VerifiedProof(proof, wit, self.curve, dict(prover.phase_seconds))
+
+    def write_puyapy_verifier(self, filepath: str, output_type: "ContractType"):
+        """Emit PuyaPy verifier source (reference algoplonk.go:63-76)."""
+        with open(filepath, "w") as fh:
+            write_python_code(self.vk, output_type, fh)
 
 
 @dataclass

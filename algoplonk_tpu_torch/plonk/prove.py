@@ -36,6 +36,7 @@ from ..ops.field import field_ops
 from ..ops.msm import msm_ctx
 from ..ops.ntt import ntt_plan
 from ..ops.ntt_kernels import four_step_plan
+from ..utils.compile_cache import enable_persistent_cache
 from .keys import ProvingKey
 
 
@@ -102,6 +103,9 @@ class Prover:
                 "call set_gnark_compat(...) to the mode the circuit was "
                 "compiled under before constructing the Prover"
             )
+        # build or load the kernel library now, not inside the first prove
+        if self.device.type == "cuda":
+            enable_persistent_cache()
         self.f = field_ops(self.curve.fr, self.device)
         self.msm = msm_ctx(self.curve, self.device)
         self.plan = ntt_plan(self.curve.name, pk.log_n, self.device)

@@ -97,15 +97,31 @@ result line):
    on each curve, K4 on arbitrary words and the edges of its ladder against
    its plain version and host integers, K5, K6 and K7 on identity, doubling
    and cancelling lanes against host EC arithmetic, and K8 on both of its
-   fields against host integers.
+   fields against host integers;
+8. the modules off the prove path, on the circuits of phases 2 and 6
+   (nothing new is compiled), with the counts zeroed just before: each
+   circuit's emitted logicsig and contract (CompiledCircuit.
+   write_puyapy_verifier) run under the offline AVM mock
+   (chain/algopy_mock.py) on that phase's card proof must accept it and
+   reject a flipped public input, and print their opcode budgets; KZG
+   (ops/kzg.py) on the 2^16 + 3 SRS points: commit, open and
+   verify_opening of 2^16 random residues (the value equals host Horner,
+   value + 1 is rejected), and at 2^12 coefficients commit and the
+   opening's proof equal to the plain MSM, which launches nothing; the G1
+   NTT (ops/gntt.py): to_lagrange_g1 of 2^11 SRS points, its launches and
+   seconds, then commit == commit_lagrange of random coefficients (both
+   MSMs on the kernels) and its first point against host arithmetic; the
+   cache (utils/cache.py): phase 2's circuit written and read back onto
+   the card proves Prover(rng=False)'s bytes.  Every MSM kernel at W = 8
+   and both field kernels must have launched.
 
 Output: timings on stdout; before the last line the card's name and power
 limit, then a JSON line of per-kernel numbers: launches from the path that
 runs the kernel (the MSM kernels at W = 8 and K9 from the 2^17 path, the
 MSM kernels at W = 12 from the BLS12-381 path, K4-K7 from the kernel-test
 path, the field kernels from the prove + self-verify of their curve's path,
-or the kernel-test path's for a field that prove does not compute in), the
-time of
+or the kernel-test path's for a field that prove does not compute in;
+"phase8_launches" the same kernel's in phase 8), the time of
 kernel and plain version at phase 1's shapes (K9's ms and plain_ms are the
 sums over BN254's four main-path passes, every pass of both fields itemised
 under "passes"; K1's, K2's, K4's and the
@@ -136,6 +152,9 @@ LM_LOG_N = 17     # the BN254 2^17 path (four-step quotient, K9)
 BLS_LOG_N = 14    # the BLS12-381 path: the Ethereum KZG ceremony's cap
 BLS_MSM_POINTS = 1 << 15   # every G1 point of that ceremony
 HOST_PREFIX = 4096         # points checked against the host Pippenger
+KZG_LOG = 16               # phase 8: coefficients of the KZG polynomial, 2^KZG_LOG
+KZG_CHECK = 1 << 12        # phase 8: coefficients held to the plain MSM (above HOST_MSM_MAX)
+G1_NTT_LOG = 11            # phase 8: points of the G1 NTT, 2^G1_NTT_LOG
 TRACE_PADS = (0.02, 0.25, 1.0, 3.0)   # idle seconds around a traced call, by try
 TRACE_LEAD = 5                        # uncounted launches at the start of a timing trace
 MSM_SRC = "algoplonk_tpu_torch/csrc/msm_kernels.cu"
@@ -1179,6 +1198,166 @@ class msm_timer:
         M.MsmCtx.msm_to_affine_int = self.orig
 
 
+def counts_since(before: dict) -> dict:
+    """Launches by kernel and width since ``before`` (a launches_by_width() reading)."""
+    now = launches_by_width()
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+
+
+def launches_by_width() -> dict:
+    """Every launch counter by (kernel, width): the one reader the phases
+    compare readings of.  K9 counts at width 8, that of both scalar fields."""
+    from algoplonk_tpu_torch.ops import curve_kernels as ck
+    from algoplonk_tpu_torch.ops import field_kernels as fk
+    from algoplonk_tpu_torch.ops import ntt_kernels as nk
+
+    return {**ck.LAUNCHES_BY_WIDTH, **fk.LAUNCHES_BY_WIDTH,
+            **{(k, 8): v for k, v in nk.LAUNCHES.items()}}
+
+
+def emit_and_run(apt, cc, vp, tag):
+    """cc's emitted logicsig and contract, each run under the AVM mock on
+    vp's card proof (True) and on a flipped public-input byte (False).
+    Returns the opcode budget of each accepted run, by contract type."""
+    import tempfile
+
+    from algoplonk_tpu_torch.chain import algopy_mock as mock
+
+    proof, publics = vp.marshal_proof(), vp.marshal_public_inputs()
+    flipped = publics[:31] + bytes([publics[31] ^ 1]) + publics[32:]
+    budgets = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for ctype in apt.ContractType:
+            path = os.path.join(tmp, f"Verifier_{ctype.value}.py")
+            cc.write_puyapy_verifier(path, ctype)
+            with open(path) as fh:
+                ns = mock.exec_verifier_source(fh.read())
+            run = mock.run_logicsig if ctype is apt.ContractType.LOGIC_SIG else \
+                mock.run_contract_verify
+            mock.budget.reset()
+            t0 = time.perf_counter()
+            ok = run(ns, proof, publics)
+            secs = time.perf_counter() - t0
+            budgets[ctype.value] = mock.budget.consumed()
+            rejected = run(ns, proof, flipped) is False
+            log(f"{tag} emitted {ctype.value} ({os.path.getsize(path)} bytes) under the AVM "
+                f"mock: accepts the card proof {ok} in {secs:.2f} s, opcode budget "
+                f"{budgets[ctype.value]}; flipped public input rejected {rejected}")
+            if ok is not True or not rejected:
+                raise AssertionError(f"{tag} emitted {ctype.value} verifier failed its checks")
+    return budgets
+
+
+def kzg_check(torch, cc, rng, gen):
+    """KZG on cc's SRS (2^16 + 3 points on the card): commit, open at a
+    random z and verify a polynomial of 2^KZG_LOG random residues (its value
+    equals host Horner, value + 1 is rejected); at KZG_CHECK coefficients,
+    commit and the opening's proof point equal the plain MSM, which
+    launches nothing."""
+    from algoplonk_tpu_torch.ops import msm as M
+    from algoplonk_tpu_torch.ops import poly as polyops
+    from algoplonk_tpu_torch.ops.kzg import KZG
+
+    curve, dev = cc.curve, cc.pk.device
+    r = curve.fr.modulus
+    kzg = KZG(curve, cc.pk.srs_g1, cc.vk.kzg_g1, cc.vk.kzg_g2)
+    coeffs = random_residues(torch, kzg.f, 1 << KZG_LOG, gen)
+    z = rng.randrange(r)
+    out = {}
+    torch.cuda.synchronize()
+    for name, fn in (("commit", lambda: kzg.commit(coeffs)), ("open", lambda: kzg.open(coeffs, z))):
+        before = launches_by_width()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"[kzg 2^{KZG_LOG}] {name}: {secs:.3f} s, launches {counts_since(before)}")
+    C, opening = out["commit"], out["open"]
+    want = 0
+    for c in reversed(kzg.f.decode(coeffs)):
+        want = (want * z + c) % r
+    bad = type(opening)(value=(opening.value + 1) % r, proof=opening.proof)
+    checks = {"value == host Horner": opening.value == want,
+              "verify_opening": kzg.verify_opening(C, opening, z),
+              "value + 1 rejected": not kzg.verify_opening(C, bad, z)}
+    small = coeffs[:KZG_CHECK]
+    plain = M.msm_ctx(curve, dev, plain=True)
+    q, _ = polyops.kzg_quotient(kzg.f, small, kzg.f.encode([z])[0])
+    checks["commit == plain MSM"] = kzg.commit(small) == plain_launches_nothing(
+        lambda: plain.msm_to_affine_int(kzg.srs[:KZG_CHECK], small, kind="mont"), "the MSM")
+    checks["open's proof == plain MSM"] = kzg.open(small, z).proof == plain_launches_nothing(
+        lambda: plain.msm_to_affine_int(kzg.srs[:q.shape[0]], q, kind="mont"), "the MSM")
+    log(f"[kzg] checks (2^{KZG_LOG}; plain MSM at {KZG_CHECK}): {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"KZG failed: {checks}")
+    return kzg
+
+
+def g1_ntt_check(torch, kzg, gen):
+    """to_lagrange_g1 of the first 2^G1_NTT_LOG SRS points on the card,
+    with its launches and seconds; then commit(coeffs) == commit_lagrange(
+    ntt(coeffs), lag), both MSMs on the kernels, and lag[0] against host
+    arithmetic ((1/n) sum_i P_i)."""
+    from algoplonk_tpu_torch.host import fp as hfp
+    from algoplonk_tpu_torch.ops.gntt import to_lagrange_g1
+    from algoplonk_tpu_torch.ops.ntt import ntt_plan
+
+    n = 1 << G1_NTT_LOG
+    curve = kzg.curve
+    before = launches_by_width()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lag = to_lagrange_g1(curve.name, kzg.srs[:n], G1_NTT_LOG)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = counts_since(before)
+    log(f"[g1 ntt 2^{G1_NTT_LOG}] to_lagrange_g1: {secs:.2f} s, launches {launches} "
+        f"({sum(launches.values())} in all)")
+    coeffs = random_residues(torch, kzg.f, n, gen)
+    evals = ntt_plan(curve.name, G1_NTT_LOG, kzg.srs.device).ntt(coeffs)
+    F = hfp.GF(curve.fp.modulus)
+    total = None
+    for P in kzg.ops.decode_affine(kzg.srs[:n]):
+        total = hfp.ec_add(F, total, P)
+    checks = {"commit == commit_lagrange": kzg.commit(coeffs) == kzg.commit_lagrange(evals, lag),
+              "lag[0] == host": kzg.ops.decode_affine(lag[:1])[0] == hfp.ec_mul(
+                  F, total, pow(n, -1, curve.fr.modulus))}
+    log(f"[g1 ntt 2^{G1_NTT_LOG}] checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"G1 NTT failed: {checks}")
+
+
+def cache_check(torch, cc, circuit, t_compile, tag):
+    """cc written with utils.cache and read back onto its device (the
+    card): the read-back keys prove Prover(rng=False)'s bytes."""
+    import tempfile
+
+    from algoplonk_tpu_torch.frontend import witness as witness_mod
+    from algoplonk_tpu_torch.plonk.marshal import marshal_proof
+    from algoplonk_tpu_torch.plonk.prove import Prover
+    from algoplonk_tpu_torch.utils import cache
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "circuit.ccc")
+        t0 = time.perf_counter()
+        cache.write_compiled_circuit(cc, path)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = cache.read_compiled_circuit(path, device=cc.pk.device)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+    blobs = []
+    for keys in (cc, back):
+        prover = Prover(keys.pk, keys.ccs, rng=False)
+        wit = witness_mod.solve(keys.ccs, circuit, commitment_solver=prover.bsb_solver)
+        blobs.append(marshal_proof(keys.curve, prover.prove(wit)))
+    log(f"{tag} cache: {size} bytes, write {t_write:.2f} s, read onto the card {t_read:.2f} s "
+        f"(compile {t_compile:.2f} s); Prover(rng=False) bytes equal: {blobs[0] == blobs[1]}")
+    if blobs[0] != blobs[1] or back.pk.device != cc.pk.device:
+        raise AssertionError(f"{tag} the cached keys prove other bytes")
+
+
 def main() -> int:
     import torch
 
@@ -1244,8 +1423,9 @@ def main() -> int:
         with the launch counts zeroed just before it; every kernel named in
         ``expect`` and both field kernels must have launched, the field
         kernels in the prove itself.  Returns (cc, circuit, x, y, launches
-        by kernel and width, launches by kernel).  The field kernels'
-        launches by field go to ``field_paths``."""
+        by kernel and width, launches by kernel, the card proof, compile
+        seconds).  The field kernels' launches by field go to
+        ``field_paths``."""
         r = curve.fr.modulus
         x = 0xA1607 % r
         SquareChain, chain = square_chain(apt, log_n)
@@ -1256,7 +1436,7 @@ def main() -> int:
         t0 = time.perf_counter()
         cc = apt.compile(SquareChain, curve, setup, device=dev)
         t_compile = time.perf_counter() - t0
-        at_compile = {**ck.LAUNCHES_BY_WIDTH, **fk.LAUNCHES_BY_WIDTH}
+        at_compile = launches_by_width()
         field_at_compile, copies_at_compile = dict(fk.LAUNCHES_BY_FIELD), fk.COPIES
         t0 = time.perf_counter()
         with msm_timer() as msm_t:
@@ -1264,9 +1444,8 @@ def main() -> int:
         t_verify = time.perf_counter() - t0
         blob = vp.marshal_proof()
         launches = launch_counts()
-        by_width = {k: v for k, v in {**ck.LAUNCHES_BY_WIDTH, **fk.LAUNCHES_BY_WIDTH}.items()
-                    if v}
-        in_prove = {k: v - at_compile[k] for k, v in by_width.items() if v > at_compile[k]}
+        by_width = {k: v for k, v in launches_by_width().items() if v}
+        in_prove = counts_since(at_compile)
         field_in_prove = {k: v - field_at_compile.get(k, 0)
                           for k, v in fk.LAUNCHES_BY_FIELD.items()}
         field_paths.setdefault(curve.name, (field_in_prove, dict(fk.LAUNCHES_BY_FIELD)))
@@ -1295,11 +1474,12 @@ def main() -> int:
         missing += [k for k in fk.KERNELS if per_prove[k] == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the {tag} path: {missing}")
-        return cc, SquareChain, x, y, {**ck.LAUNCHES_BY_WIDTH, **fk.LAUNCHES_BY_WIDTH}, launches
+        return (cc, SquareChain, x, y, launches_by_width(), launches, vp, t_compile)
 
     # ---- phase 2: the 2^16 path, then one warm prove of it under the profiler
-    cc, SquareChain, x, y, _, _ = drive(
+    cc, SquareChain, x, y, _, _, vp16, t_compile16 = drive(
         apt.BN254, apt.SetupName.TEST_ONLY_BN254, LOG_N, ck.MSM_KERNELS)
+    cc16, circuit16 = cc, SquareChain(x=x, y=y)
     n_kernels, by_type, busy, wall = profile_device(torch, lambda: cc.verify(SquareChain(x=x, y=y)))
     log(f"[bn254 2^{LOG_N}] warm prove + self-verify under torch.profiler: {wall:.2f} s, "
         f"{n_kernels} CUDA kernel launches, device busy {busy:.1%}; device events by type: "
@@ -1377,7 +1557,7 @@ def main() -> int:
 
     # ---- phase 5: the 2^17 path (four-step quotient, K9)
     four_step_check(torch)
-    cc, SquareChain, x, y, _, launches = drive(
+    cc, SquareChain, x, y, _, launches, _, _ = drive(
         apt.BN254, apt.SetupName.TEST_ONLY_BN254, LM_LOG_N, (*ck.MSM_KERNELS, *nk.KERNELS))
     lifts = 13 + 2 * len(cc.ccs.commitments)
     if launches["ntt_pass"] != 2 * (lifts + 1):
@@ -1416,7 +1596,7 @@ def main() -> int:
     # ---- phase 6: the BLS12-381 path on the Ethereum KZG ceremony
     bls = apt.BLS12_381
     ceremony = apt.SetupName.ETHEREUM_KZG_CEREMONY_BLS12_381
-    bcc, BSquare, bx, by, by_width, _ = drive(bls, ceremony, BLS_LOG_N, ck.MSM_KERNELS)
+    bcc, BSquare, bx, by, by_width, _, bvp14, _ = drive(bls, ceremony, BLS_LOG_N, ck.MSM_KERNELS)
     missing = [k for k in ck.MSM_KERNELS if by_width[k, 12] == 0]
     if missing:
         raise AssertionError(f"kernels not launched at W = 12 on the BLS12-381 path: {missing}")
@@ -1424,7 +1604,6 @@ def main() -> int:
         if k["kernel"] in ck.MSM_KERNELS and k["width"] == 12:
             k["launches"] = by_width[k["kernel"], 12]
     quotient_paths(torch, apt, bcc, BSquare(x=bx, y=by), f"[bls12_381 2^{BLS_LOG_N}]")
-    del bcc
     gpu_equals_cpu(bls, ceremony, P, dict(a=3, b=4, c=5), [3, 4])
 
     t0 = time.perf_counter()
@@ -1474,8 +1653,7 @@ def main() -> int:
         t0 = time.perf_counter()
         ok = kernel_test_path(torch, curve)
         off_path_field.update(fk.LAUNCHES_BY_FIELD)
-        launched = {k: v for k, v in {**ck.LAUNCHES_BY_WIDTH, **fk.LAUNCHES_BY_WIDTH}.items()
-                    if v}
+        launched = {k: v for k, v in launches_by_width().items() if v}
         log(f"[{curve.name}] kernel-test path of K4-K8: {time.perf_counter() - t0:.2f} s, "
             f"equal to host: {ok}; launches: {launched}")
         if not ok:
@@ -1499,13 +1677,37 @@ def main() -> int:
                 if got.get(key):
                     k["launches"], k["launches_on"] = got[key], where
                     break
+
+    # ---- phase 8: the modules off the prove path, on phase 2's and phase
+    # 6's circuits, with the counts zeroed just before
+    reset_counts()
+    t0 = time.perf_counter()
+    budgets = {"bn254": emit_and_run(apt, cc16, vp16, f"[bn254 2^{LOG_N}]"),
+               "bls12_381": emit_and_run(apt, bcc, bvp14, f"[bls12_381 2^{BLS_LOG_N}]")}
+    t_emit = time.perf_counter() - t0
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    kzg = kzg_check(torch, cc16, rng, gen)
+    g1_ntt_check(torch, kzg, gen)
+    cache_check(torch, cc16, circuit16, t_compile16, f"[bn254 2^{LOG_N}]")
+    slice_launches = launches_by_width()
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s (emit and run {t_emit:.1f} s); "
+        f"opcode budgets {budgets}; launches {dict((k, v) for k, v in slice_launches.items() if v)}")
+    missing = [k for k in ck.MSM_KERNELS + fk.KERNELS if not slice_launches[k, 8]]
+    if missing:
+        raise AssertionError(f"kernels not launched on phase 8's paths: {missing}")
+    for k in kernels:
+        if k["kernel"] in ck.MSM_KERNELS and k["width"] == 8:
+            k["phase8_launches"] = slice_launches[k["kernel"], 8]
+        elif k["kernel"] in fk.KERNELS:
+            k["phase8_launches"] = fk.LAUNCHES_BY_FIELD.get((k["kernel"], k["field"]), 0)
+
     unlaunched = [k["name"] for k in kernels if not k.get("launches")]
     if unlaunched:
         raise AssertionError(f"kernels never launched on their path: {unlaunched}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "events_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "T", "depth", "work_adds",
-            "rounds_ms", "passes", "shapes", "host_us", "launches_on")
+            "rounds_ms", "passes", "shapes", "host_us", "launches_on", "phase8_launches")
     line = [{key: k[key] for key in keys if key in k} for k in kernels]
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -126,8 +126,7 @@ def test_verified_proof_built_as_the_reference_builds_it(port_pyth):
 
 
 def test_exports_the_reference_api():
-    """Every name of the reference's __all__ but ContractType, which waits
-    for the port of the verifier codegen."""
-    assert set(ap.__all__) - {"ContractType"} <= set(apt.__all__)
+    """Every name of the reference's __all__."""
+    assert set(ap.__all__) <= set(apt.__all__)
     for name in apt.__all__:
         assert hasattr(apt, name), name

@@ -3,8 +3,9 @@ jax, nor any module of the reference package, not even a jax-free one.
 
 A fresh interpreter, in which ``jax`` and ``algoplonk_tpu`` cannot be
 imported at all, imports every module of the port and proves and verifies a
-circuit on each curve on the CPU; afterwards neither is in ``sys.modules``
-and no loaded module comes from the reference's directory.  The entry points
+circuit on each curve on the CPU, and runs the BN254 proof through its
+emitted verifier under the port's AVM mock; afterwards neither is in
+``sys.modules`` and no loaded module comes from the reference's directory.  The entry points
 run on the card by default, and refuse to start without one."""
 
 import os
@@ -21,7 +22,8 @@ import algoplonk_tpu_torch as apt
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "algoplonk_tpu_torch"
 
-SCRIPT = r"""
+# the head of a script in which jax and algoplonk_tpu cannot be imported
+BLOCK_IMPORTS = r"""
 import importlib
 import importlib.abc
 import pathlib
@@ -40,6 +42,11 @@ class Block(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, Block())
+"""
+
+SCRIPT = BLOCK_IMPORTS + r"""
+import os
+import tempfile
 
 import torch
 
@@ -64,19 +71,29 @@ class Pythagorean(apt.Circuit):
         api.assert_is_equal(api.add(a2, b2), c2)
 
 
-sizes = []
+from algoplonk_tpu_torch.chain import algopy_mock
+
+sizes, accepted = [], None
 for curve, setup in ((apt.BN254, apt.SetupName.TEST_ONLY_BN254),
                      (apt.BLS12_381, apt.SetupName.ETHEREUM_KZG_CEREMONY_BLS12_381)):
     cc = apt.compile(Pythagorean, curve, setup, device="cpu")
-    sizes.append(len(cc.verify(Pythagorean(a=3, b=4, c=5)).marshal_proof()))
+    vp = cc.verify(Pythagorean(a=3, b=4, c=5))
+    sizes.append(len(vp.marshal_proof()))
+    if accepted is None:   # BN254: its emitted verifier under the port's mock
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "Verifier.py")
+            cc.write_puyapy_verifier(path, apt.ContractType.LOGIC_SIG)
+            ns = algopy_mock.exec_verifier_source(open(path).read())
+        accepted = algopy_mock.run_logicsig(ns, vp.marshal_proof(), vp.marshal_public_inputs())
 loaded = sorted(m for m in sys.modules if reference_or_jax(m))
 ref_dir = str(pathlib.Path(apt.__file__).resolve().parents[1] / "algoplonk_tpu") + "/"
 from_ref = sorted(
     name for name, m in list(sys.modules.items())
     if str(pathlib.Path(getattr(m, "__file__", None) or "/").resolve()).startswith(ref_dir)
 )
-print("loaded:", loaded, "from reference:", from_ref, "proof bytes:", sizes)
-sys.exit(1 if loaded or from_ref or sizes != [768, 1056] else 0)
+print("loaded:", loaded, "from reference:", from_ref, "proof bytes:", sizes,
+      "emitted verifier accepts:", accepted)
+sys.exit(1 if loaded or from_ref or sizes != [768, 1056] or accepted is not True else 0)
 """
 
 
@@ -87,7 +104,8 @@ def test_port_proves_without_jax():
         capture_output=True, text=True, timeout=600,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "loaded: [] from reference: [] proof bytes: [768, 1056]" in proc.stdout
+    assert ("loaded: [] from reference: [] proof bytes: [768, 1056] "
+            "emitted verifier accepts: True") in proc.stdout
 
 
 def test_port_sources_import_no_jax():

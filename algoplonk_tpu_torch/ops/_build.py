@@ -205,6 +205,16 @@ def stream_of(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def settle(device) -> None:
+    """Wait for the current stream of a CUDA ``device``, so that a table or
+    context built on it is complete before it is published to callers that
+    read it on other streams (parallel/batch_prove.py); a one-time cost per
+    table.  Nothing to wait for on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")

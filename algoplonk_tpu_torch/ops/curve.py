@@ -20,6 +20,7 @@ import torch
 
 from ..fields.params import CurveParams
 from ..fields.words import ints_to_mont_words, mont_words_to_ints, word_field
+from ._build import settle
 from .field import FieldOps, field_ops
 
 
@@ -196,7 +197,9 @@ class CurveOps:
 
 @functools.lru_cache(maxsize=None)
 def _curve_ops(curve: CurveParams, device: str, plain: bool) -> CurveOps:
-    return CurveOps(curve, device, plain)
+    ops = CurveOps(curve, device, plain)
+    settle(device)
+    return ops
 
 
 def curve_ops(curve: CurveParams, device="cuda", plain: bool = False) -> CurveOps:

@@ -112,8 +112,12 @@ def plain_mixed_add_signed_multi(ops: CurveOps, acc, pts_flat, packed):
     a = _bm(acc)
     for k in range(packed.shape[0]):
         pts = pts_flat[rows[k]].reshape(-1, 2, W)
-        y = ops.f.select(neg[k], ops.f.neg(pts[:, 1]), pts[:, 1])
-        a = ops.jac_add_affine(a, torch.stack([pts[:, 0], y], dim=1))
+        # a lane that gathers the identity, affine (0, 0), keeps its sum
+        # (jac_add_affine's select), so only the others are computed
+        live = (pts != 0).flatten(1).any(dim=1).nonzero().squeeze(1)
+        pts = pts[live]
+        y = ops.f.select(neg[k][live], ops.f.neg(pts[:, 1]), pts[:, 1])
+        a = a.index_copy(0, live, ops.jac_add_affine(a[live], torch.stack([pts[:, 0], y], dim=1)))
     return _lm(a)
 
 

@@ -34,6 +34,7 @@ import torch
 
 from ..fields.params import FieldParams
 from ..fields.words import WordField, ints_to_words, word_field, words_to_ints
+from ._build import settle
 
 _DB = 16                    # digit bits
 _DM = (1 << _DB) - 1
@@ -274,7 +275,9 @@ class FieldOps:
 
 @functools.lru_cache(maxsize=None)
 def _field_ops(fp: FieldParams, device: str, plain: bool) -> FieldOps:
-    return FieldOps(fp, device, plain)
+    ops = FieldOps(fp, device, plain)
+    settle(device)
+    return ops
 
 
 def field_ops(fp: FieldParams, device="cuda", plain: bool = False) -> FieldOps:

@@ -292,6 +292,15 @@ def window_sums_scan(ops: CurveOps, points_pad, digits, c: int = WINDOW_BITS,
     return out
 
 
+def add_window_sums(ops: CurveOps, a, b):
+    """Two [nw, 3, W] window-sum sets -> their sum window by window, in
+    one K3 launch over nw lanes (its plain version on a plain twin): how
+    the pieces of one MSM, and the shards of a sharded one, combine."""
+    k3 = _curve_fns(ops)[2]
+    return k3(ops, a.permute(1, 2, 0).contiguous(),
+              b.permute(1, 2, 0).contiguous()).permute(2, 0, 1)
+
+
 # --------------------------------------------------------------- host MSM
 
 def _host_digits(s: int, c: int) -> list:
@@ -428,11 +437,7 @@ class MsmCtx:
             )
             mark("digits")
             ws = window_sums_scan(self.ops, pts_pad, digs.contiguous(), c, mark=mark)
-            if total is not None:   # add the earlier pieces' window sums (K3)
-                ws = _curve_fns(self.ops)[2](
-                    self.ops, total.permute(1, 2, 0).contiguous(),
-                    ws.permute(1, 2, 0).contiguous()).permute(2, 0, 1)
-            total = ws
+            total = ws if total is None else add_window_sums(self.ops, total, ws)
         folded = self._host_fold(total, c)
         mark("host fold")
         return folded

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..fields.params import CURVES, CurveParams, domain_generator, gnark_compat_enabled
+from ._build import settle
 from .field import field_ops
 
 
@@ -90,6 +91,7 @@ class NttPlan:
             r = self.curve.fr.modulus
             s = pow(shift, -1, r) if inverse else shift
             tbl = self.f.encode(power_table(s, self.n, r))
+            settle(self.f.device)
             self._shift_tables[key] = tbl
         return tbl
 
@@ -103,7 +105,9 @@ class NttPlan:
 
 @functools.lru_cache(maxsize=None)
 def _ntt_plan(curve_name: str, log_n: int, device: str, compat: bool) -> NttPlan:
-    return NttPlan(CURVES[curve_name], log_n, device)
+    plan = NttPlan(CURVES[curve_name], log_n, device)
+    settle(device)
+    return plan
 
 
 def ntt_plan(curve_name: str, log_n: int, device="cuda") -> NttPlan:

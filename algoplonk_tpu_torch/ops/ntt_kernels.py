@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from ..fields.params import CURVES, domain_generator, gnark_compat_enabled
-from ._build import check_tensor, raise_on, stream_of
+from ._build import check_tensor, raise_on, settle, stream_of
 from .field_kernels import field_consts
 from .field import FieldOps, field_ops
 from .ntt import power_table
@@ -230,7 +230,9 @@ class FourStepPlan:
     def _table(self, key, build):
         t = self._tables.get(key)
         if t is None:
-            t = self._tables[key] = build()
+            t = build()
+            settle(self.f.device)
+            self._tables[key] = t
         return t
 
     def _outer(self, rowv, colv):
@@ -341,7 +343,9 @@ class FourStepPlan:
 
 @functools.lru_cache(maxsize=None)
 def _four_step_plan(curve_name: str, log_n: int, device: str, compat: bool) -> FourStepPlan:
-    return FourStepPlan(curve_name, log_n, device)
+    plan = FourStepPlan(curve_name, log_n, device)
+    settle(device)
+    return plan
 
 
 def four_step_plan(curve_name: str, log_n: int, device="cuda") -> FourStepPlan:

@@ -8,7 +8,7 @@ one framework to another.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -73,6 +73,16 @@ class ProvingKey:
     @property
     def device(self) -> torch.device:
         return self.srs_g1.device
+
+    def to(self, device) -> "ProvingKey":
+        """This key with every tensor on ``device``; the key itself where
+        it is there already."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        moved = {name: getattr(self, name).to(device) for name in (*_FR_FIELDS, "srs_g1")}
+        return replace(self, qcp_ev=[t.to(device) for t in self.qcp_ev],
+                       qcp_c=[t.to(device) for t in self.qcp_c], **moved)
 
 
 _FR_FIELDS = ("qk_ev", "s1_ev", "s2_ev", "s3_ev", "ql_c", "qr_c", "qm_c",

@@ -15,8 +15,15 @@ give the same proof.  Fiat-Shamir runs on host through the reference
 transcript, so the proof bytes equal the reference's for the same blinding
 (``rng=False``: none).
 
-``phase_seconds`` records the host time of each round after the device has
-drained (the commits already wait on the device, so the marks cost nothing).
+``phase_seconds`` records the host time of each round after the prover's
+stream has drained (the commits already wait on it, so the marks cost
+nothing).
+
+With a mesh (``parallel/mesh.py``), as in the reference, every commit runs
+the sharded MSM and every size-n iNTT, quotient lift and final coset iNTT
+the sharded four-step NTT (``parallel/``), whenever the transform's factors
+divide over the shards; results gather back to the key's device.  The
+proof bytes equal the single-device prove's.
 """
 
 from __future__ import annotations
@@ -36,6 +43,9 @@ from ..ops.field import field_ops
 from ..ops.msm import msm_ctx
 from ..ops.ntt import ntt_plan
 from ..ops.ntt_kernels import four_step_plan
+from ..parallel.msm_sharded import sharded_commit
+from ..parallel.mesh import all_gather
+from ..parallel.ntt_sharded import sharded_ntt_fn
 from ..utils.compile_cache import enable_persistent_cache
 from .keys import ProvingKey
 
@@ -78,11 +88,20 @@ class Prover:
 
     ``rng``: source of blinding randomness.  None uses ``secrets`` (hiding,
     as gnark blinds its wire and Z polynomials); a ``random.Random`` gives
-    deterministic test proofs; False disables blinding."""
+    deterministic test proofs; False disables blinding.
 
-    def __init__(self, pk: ProvingKey, ccs: CompiledConstraintSystem, rng=None):
+    ``mesh``: a ``parallel.Mesh`` to shard the commits and NTTs over, along
+    ``mesh_axis``; ``sharded_ntt_hits`` counts the sharded transforms."""
+
+    def __init__(self, pk: ProvingKey, ccs: CompiledConstraintSystem, rng=None,
+                 mesh=None, mesh_axis: str = "x"):
         self.pk = pk
         self.ccs = ccs
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self._sharded_msm_cache: dict = {}
+        self._sh_ntt_cache: dict = {}
+        self.sharded_ntt_hits = 0
         if rng is None:
             import secrets
 
@@ -137,10 +156,49 @@ class Prover:
         return ntt_plan(self.curve.name, self.pk.log_n + 2, self.device)
 
     def _commit(self, coeffs) -> tuple:
-        """KZG commit (monomial basis) -> host affine int point."""
+        """KZG commit (monomial basis) -> host affine int point; with a
+        mesh, the sharded MSM."""
+        if self.mesh is not None:
+            return self._commit_sharded(coeffs)
         return self.msm.msm_to_affine_int(
             self.pk.srs_g1[: coeffs.shape[0]], coeffs, kind="mont"
         )
+
+    def _commit_sharded(self, coeffs) -> tuple:
+        """The commit over the mesh, small ones included."""
+        return sharded_commit(self.curve, self.mesh, self.mesh_axis,
+                              self.pk.srs_g1[: coeffs.shape[0]], coeffs, self._sharded_msm_cache)
+
+    def _sharded_transform(self, vec, log_sz: int, inverse: bool, coset_shift: int | None):
+        """One (i)NTT of size 2^log_sz over the mesh, or None without a mesh
+        or where the four-step factors do not divide over the shards.  ``vec`` [m, W]
+        (coefficients for the forward, natural-order evaluations for the
+        inverse) is zero-padded to the size; the result, in natural order,
+        gathers to the key's device."""
+        if self.mesh is None:
+            return None
+        n = 1 << log_sz
+        ndev = self.mesh.shape[self.mesh_axis]
+        n1 = 1 << (log_sz // 2)
+        n2 = n // n1
+        if n1 % ndev or n2 % ndev:
+            return None
+        key = (log_sz, inverse, coset_shift)
+        fn = self._sh_ntt_cache.get(key)
+        if fn is None:
+            fn, _ = sharded_ntt_fn(self.curve.name, self.mesh, self.mesh_axis, log_sz,
+                                   inverse=inverse, coset_shift=coset_shift)
+            self._sh_ntt_cache[key] = fn
+        # flat index j = j1 n2 + j2 -> [j2, j1] (parallel/ntt_sharded.py)
+        x = polyops.pad_rows(vec, n).reshape(n1, n2, self.f.W).transpose(0, 1)
+        out = all_gather(fn(self.mesh.shard(x, 0)), self.device)
+        self.sharded_ntt_hits += 1
+        return out.reshape(n, self.f.W)
+
+    def _intt_n(self, ev):
+        """Size-n iNTT: sharded over the mesh where it divides."""
+        out = self._sharded_transform(ev, self.pk.log_n, inverse=True, coset_shift=None)
+        return self.plan.intt(ev) if out is None else out
 
     def _blind(self, coeffs, nb: int):
         """coeffs + (b_0 + b_1 X + ...) (X^n - 1): hides the polynomial off
@@ -166,7 +224,7 @@ class Prover:
         c_ev = torch.zeros((n, W), dtype=torch.int32, device=self.device)
         if rows:
             c_ev = _scatter_rows(c_ev, rows, self.f.encode(committed_values))
-        c_c = self.plan.intt(c_ev)
+        c_c = self._intt_n(c_ev)
         com = self._commit(c_c)
         self._bsb.append({"com": com, "c_c": c_c, "info": info})
         return hash_fr_bsb22(self.curve, self.tr.point(com))
@@ -176,13 +234,15 @@ class Prover:
     def _use_lm_quotient(self) -> bool:
         """Take the four-step quotient (``_quotient_lm``)?  The reference's
         rule and variables: AP_QUOTIENT_LM=0/1 forces a path, otherwise the
-        four-step one from a coset of 2^AP_NTT_LM_MIN_LOG (default 19) on.
-        Unlike the reference, on any device: on the CPU its K9 passes run
-        their plain version."""
+        four-step one from a coset of 2^AP_NTT_LM_MIN_LOG (default 19) on,
+        and never with a mesh (the batch-major quotient shards its
+        transforms).  Unlike the reference, on any device: on the CPU its K9
+        passes run their plain version."""
         forced = os.environ.get("AP_QUOTIENT_LM", "")
         if forced in ("0", "1"):
             return forced == "1"
-        return self.pk.log_n + 2 >= int(os.environ.get("AP_NTT_LM_MIN_LOG", "19"))
+        return (self.pk.log_n + 2 >= int(os.environ.get("AP_NTT_LM_MIN_LOG", "19"))
+                and self.mesh is None)
 
     def _quotient(self, l_c, r_c, o_c, z_c, qk_c_complete, bsb, beta, gamma, alpha):
         """Round-3 quotient, batch-major (the reference's _quotient_xla):
@@ -196,7 +256,8 @@ class Prover:
         N4 = 4 * n
 
         def lift(coeffs):
-            return self.plan4.coset_ntt(polyops.pad_rows(coeffs, N4), g)
+            out = self._sharded_transform(coeffs, pk.log_n + 2, inverse=False, coset_shift=g)
+            return self.plan4.coset_ntt(polyops.pad_rows(coeffs, N4), g) if out is None else out
 
         # each selector is lifted just in time and dropped after use
         l4, r4, o4 = lift(l_c), lift(r_c), lift(o_c)
@@ -250,7 +311,11 @@ class Prover:
             ),
         )
         del gate, perm, L1, z4m1
-        h_c = self.plan4.coset_intt(f.mul(num_total, inv_zh_tiled), g)
+        h_ev = f.mul(num_total, inv_zh_tiled)
+        del num_total
+        h_c = self._sharded_transform(h_ev, pk.log_n + 2, inverse=True, coset_shift=g)
+        if h_c is None:
+            h_c = self.plan4.coset_intt(h_ev, g)
         m = n + 2
         return h_c[:m], h_c[m : 2 * m], h_c[2 * m : 3 * m]
 
@@ -329,8 +394,10 @@ class Prover:
     # ---------------------------------------------------------------- prove
 
     def _mark(self, name: str) -> None:
+        # the prover's own stream: concurrent provers on other streams of
+        # the card (parallel/batch_prove.py) are not waited for
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
         now = time.perf_counter()
         self.phase_seconds[name] = now - self._t
         self._t = now
@@ -354,9 +421,9 @@ class Prover:
         # ---- round 1: wire polynomials + commitments (blinded)
         l_ints, r_ints, o_ints = wire_values(self.ccs, witness, n)
         l_ev, r_ev, o_ev = f.encode(l_ints), f.encode(r_ints), f.encode(o_ints)
-        l_c = self._blind(self.plan.intt(l_ev), 2)
-        r_c = self._blind(self.plan.intt(r_ev), 2)
-        o_c = self._blind(self.plan.intt(o_ev), 2)
+        l_c = self._blind(self._intt_n(l_ev), 2)
+        r_c = self._blind(self._intt_n(r_ev), 2)
+        o_c = self._blind(self._intt_n(o_ev), 2)
         l_com = self._commit(l_c)
         r_com = self._commit(r_c)
         o_com = self._commit(o_c)
@@ -386,7 +453,7 @@ class Prover:
         ratio = f.mul(num, polyops.batch_inverse_tree(f, den))
         pp = polyops.prefix_products(f, ratio)
         z_ev = torch.cat([f.one[None], pp[:-1]])
-        z_c = self._blind(self.plan.intt(z_ev), 3)
+        z_c = self._blind(self._intt_n(z_ev), 3)
         z_com = self._commit(z_c)
         del num, den, ratio, pp, z_ev, id2, id3, omega_pows, l_ev, r_ev, o_ev
         self._mark("r2")
@@ -403,7 +470,7 @@ class Prover:
         qk_ev_complete = pk.qk_ev
         if upd_rows:
             qk_ev_complete = _scatter_rows(pk.qk_ev, upd_rows, f.encode(upd_vals))
-        qk_c_complete = self.plan.intt(qk_ev_complete)
+        qk_c_complete = self._intt_n(qk_ev_complete)
         quotient = self._quotient_lm if self._use_lm_quotient() else self._quotient
         h0_c, h1_c, h2_c = quotient(l_c, r_c, o_c, z_c, qk_c_complete, bsb, beta, gamma, alpha)
         h0 = self._commit(h0_c)

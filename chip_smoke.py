@@ -113,7 +113,25 @@ result line):
    MSMs on the kernels) and its first point against host arithmetic; the
    cache (utils/cache.py): phase 2's circuit written and read back onto
    the card proves Prover(rng=False)'s bytes.  Every MSM kernel at W = 8
-   and both field kernels must have launched.
+   and both field kernels must have launched;
+9. sharded and batch proving (algoplonk_tpu_torch/parallel/) on a mesh of
+   MESH_SHARDS shards, all on the one card (``Mesh([cuda:0] * 4)``), each
+   sharded call with the counts zeroed just before it and read just after:
+   (a) the sharded commit MSM (the prover's bucket padding) of phase 3's
+   65,539 BN254 points and of 16,387 BLS12-381 ceremony points equals the
+   single-device MSM, and a 4,096-point prefix the plain path; (b) the
+   sharded coset NTT and iNTT of 2^19 equal the radix-2 plan's words, in
+   two K9 launches per shard each; (c) Prover(rng=False, mesh) on phase
+   5's BN254 2^17 keys and phase 6's BLS12-381 2^14 keys gives the
+   single-device Prover(rng=False)'s proof bytes with every size-n iNTT,
+   lift and coset iNTT sharded, and verifies (seconds, launches, peak
+   memory; then a warm sharded prove under torch.profiler); (d) prove_batch
+   of BATCH BN254 2^16 witnesses with BATCH workers (one CUDA stream each)
+   and with one, beside BATCH sequential proves, alternating, each batch
+   proof byte-equal to its sequential proof (then the BATCH-stream batch
+   under torch.profiler).  K1, K2, K3 (its scan and phase 4 too) at both
+   widths, K8 and field_add_sub on both scalar fields and K9 must have
+   launched in (a)-(c).
 
 Output: timings on stdout; before the last line the card's name and power
 limit, then a JSON line of per-kernel numbers: launches from the path that
@@ -121,7 +139,8 @@ runs the kernel (the MSM kernels at W = 8 and K9 from the 2^17 path, the
 MSM kernels at W = 12 from the BLS12-381 path, K4-K7 from the kernel-test
 path, the field kernels from the prove + self-verify of their curve's path,
 or the kernel-test path's for a field that prove does not compute in;
-"phase8_launches" the same kernel's in phase 8), the time of
+"phase8_launches" the same kernel's in phase 8, "phase9_launches" in
+phase 9's sharded calls), the time of
 kernel and plain version at phase 1's shapes (K9's ms and plain_ms are the
 sums over BN254's four main-path passes, every pass of both fields itemised
 under "passes"; K1's, K2's, K4's and the
@@ -155,6 +174,8 @@ HOST_PREFIX = 4096         # points checked against the host Pippenger
 KZG_LOG = 16               # phase 8: coefficients of the KZG polynomial, 2^KZG_LOG
 KZG_CHECK = 1 << 12        # phase 8: coefficients held to the plain MSM (above HOST_MSM_MAX)
 G1_NTT_LOG = 11            # phase 8: points of the G1 NTT, 2^G1_NTT_LOG
+MESH_SHARDS = 4            # phase 9: shards of the mesh, all on the one card
+BATCH = 4                  # phase 9: witnesses of a batch, and its workers
 TRACE_PADS = (0.02, 0.25, 1.0, 3.0)   # idle seconds around a traced call, by try
 TRACE_LEAD = 5                        # uncounted launches at the start of a timing trace
 MSM_SRC = "algoplonk_tpu_torch/csrc/msm_kernels.cu"
@@ -1358,6 +1379,204 @@ def cache_check(torch, cc, circuit, t_compile, tag):
         raise AssertionError(f"{tag} the cached keys prove other bytes")
 
 
+class Phase9Counts:
+    """Launches of phase 9's sharded calls: each is run with every count
+    zeroed just before it and read just after, and the readings add up,
+    by (kernel, width) and by (field kernel, field).  The comparisons'
+    single-device runs and the batches (whose threads race on the
+    counters) are not counted."""
+
+    def __init__(self, torch):
+        self.torch, self.by_width, self.by_field = torch, {}, {}
+
+    def __call__(self, fn):
+        from algoplonk_tpu_torch.ops import curve_kernels as ck
+        from algoplonk_tpu_torch.ops import field_kernels as fk
+        from algoplonk_tpu_torch.ops import ntt_kernels as nk
+
+        for mod in (ck, nk, fk):
+            mod.reset_launch_counts()
+        out = fn()
+        self.torch.cuda.synchronize()
+        for key, v in launches_by_width().items():
+            self.by_width[key] = self.by_width.get(key, 0) + v
+        for key, v in fk.LAUNCHES_BY_FIELD.items():
+            self.by_field[key] = self.by_field.get(key, 0) + v
+        return out
+
+
+def sharded_msm_check(torch, mesh, counts, curve, pts, mont, want, tag):
+    """Phase 9 (a): the sharded commit MSM (the prover's bucket padding,
+    ``sharded_commit``) equals the single-device one (``want``), and on a
+    HOST_PREFIX prefix the plain path, which launches nothing."""
+    from algoplonk_tpu_torch.ops import msm as M
+    from algoplonk_tpu_torch.parallel.msm_sharded import sharded_commit
+
+    ctx = M.msm_ctx(curve, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = counts(lambda: sharded_commit(curve, mesh, "x", pts, mont))
+    t_sh = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx.msm_to_affine_int(pts, mont, kind="mont")
+    t_one = time.perf_counter() - t0
+    pre = counts(lambda: sharded_commit(curve, mesh, "x", pts[:HOST_PREFIX], mont[:HOST_PREFIX]))
+    plain = plain_launches_nothing(
+        lambda: M.msm_ctx(curve, "cuda", plain=True).msm_to_affine_int(
+            pts[:HOST_PREFIX], mont[:HOST_PREFIX], kind="mont"), "the MSM")
+    log(f"{tag} sharded MSM of {pts.shape[0]} points on {len(mesh.devices)} shards: "
+        f"{t_sh:.3f} s (function built in the call), single device {t_one:.3f} s; equal: "
+        f"{got == want}; {HOST_PREFIX}-point prefix sharded == plain: {pre == plain}")
+    if got != want or pre != plain:
+        raise AssertionError(f"{tag} the sharded MSM disagrees")
+
+
+def sharded_ntt_check(torch, mesh, counts):
+    """Phase 9 (b): the sharded coset NTT and iNTT of 2^(LM_LOG_N + 2) equal
+    the radix-2 plan's words, in 2 K9 launches per shard each."""
+    import algoplonk_tpu_torch as apt
+    from algoplonk_tpu_torch.ops import ntt_kernels as nk
+    from algoplonk_tpu_torch.ops.ntt import ntt_plan
+    from algoplonk_tpu_torch.parallel import all_gather, sharded_ntt_fn
+
+    log_n, g, d = LM_LOG_N + 2, apt.BN254.coset_shift, len(mesh.devices)
+    plan = ntt_plan("bn254", log_n, "cuda")
+    coeffs = random_residues(torch, plan.f, plan.n, torch.Generator(device="cpu").manual_seed(12))
+    evals = plan.coset_ntt(coeffs, g)
+    ok, secs, k9_before = True, {}, counts.by_width.get(("ntt_pass", 8), 0)
+    for inverse, x, want in ((False, coeffs, evals), (True, evals, plan.coset_intt(evals, g))):
+        name = "coset iNTT" if inverse else "coset NTT"
+        t0 = time.perf_counter()
+        fn, (n1, n2) = sharded_ntt_fn("bn254", mesh, "x", log_n, inverse=inverse, coset_shift=g)
+        torch.cuda.synchronize()
+        t_tables = time.perf_counter() - t0
+
+        def run():
+            parts = fn(mesh.shard(x.reshape(n1, n2, -1).transpose(0, 1), 0))
+            return all_gather(parts, x.device).reshape(x.shape)
+
+        got = counts(run)
+        k9 = counts.by_width.get(("ntt_pass", 8), 0) - k9_before
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+        secs[name] = (time.perf_counter() - t0) / 5
+        same = torch.equal(got, want)
+        log(f"sharded {name} of 2^{log_n} on {d} shards ({n1} x {n2}): equal to the plan's words: "
+            f"{same}; K9 launches in this check so far: {k9}; tables {t_tables:.3f} s; warm "
+            f"{secs[name] * 1e3:.2f} ms a transform (host clock, synchronised, layout and "
+            "gather included)")
+        ok = ok and same
+    if not ok or k9 != 4 * d:
+        raise AssertionError("the sharded coset transforms disagree with the plan, or K9 "
+                             f"launched {k9} times, not {4 * d}")
+
+
+def sharded_prove_check(torch, mesh, counts, cc, circuit, tag):
+    """Phase 9 (c): Prover(rng=False, mesh) on cc's keys gives the
+    single-device Prover(rng=False)'s bytes with every size-n iNTT, lift and
+    coset iNTT sharded, and the proof verifies; then a warm sharded prove
+    under torch.profiler."""
+    from algoplonk_tpu_torch.frontend import witness as witness_mod
+    from algoplonk_tpu_torch.plonk import verify as V
+    from algoplonk_tpu_torch.plonk.marshal import marshal_proof
+    from algoplonk_tpu_torch.plonk.prove import Prover
+
+    wit = witness_mod.solve(cc.ccs, circuit)
+    one = Prover(cc.pk, cc.ccs, rng=False)
+    t0 = time.perf_counter()
+    want = marshal_proof(cc.curve, one.prove(wit))
+    t_one = time.perf_counter() - t0
+    before = {k: v for k, v in counts.by_width.items()}
+    torch.cuda.reset_peak_memory_stats()
+    prover = Prover(cc.pk, cc.ccs, rng=False, mesh=mesh)
+    t0 = time.perf_counter()
+    proof = counts(lambda: prover.prove(wit))
+    t_sh = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = marshal_proof(cc.curve, proof)
+    ok = V.verify(cc.vk, proof, wit.public_values)
+    nbsb = len(cc.ccs.commitments)
+    expect = 5 + nbsb + 13 + 2 * nbsb + 1
+    launched = {f"{k}[w{w}]": v - before.get((k, w), 0) for (k, w), v in counts.by_width.items()
+                if v != before.get((k, w), 0)}
+    log(f"{tag} sharded prove, Prover(rng=False, mesh of {len(mesh.devices)} shards): "
+        f"{t_sh:.2f} s (first, tables built), phases (s): "
+        + json.dumps({k: round(v, 4) for k, v in prover.phase_seconds.items()})
+        + f"; single device {t_one:.2f} s, phases (s): "
+        + json.dumps({k: round(v, 4) for k, v in one.phase_seconds.items()})
+        + f"; sharded NTTs {prover.sharded_ntt_hits} of {expect}; bytes equal: {got == want}; "
+        f"native verify: {ok}; launches: {launched}; peak device memory {peak / 2**30:.3f} GiB")
+    if got != want or not ok or prover.sharded_ntt_hits != expect:
+        raise AssertionError(f"{tag} the sharded prove disagrees with the single-device prove")
+    warm = Prover(cc.pk, cc.ccs, rng=False, mesh=mesh)
+    n_kernels, by_type, busy, wall = profile_device(torch, lambda: warm.prove(wit))
+    log(f"{tag} sharded prove under torch.profiler: {wall:.2f} s, {n_kernels} CUDA kernel "
+        f"launches, device busy {busy:.1%}; device events by type: {by_type}")
+
+
+def batch_check(torch, apt, cc, SquareChain, chain, rounds: int = 2):
+    """Phase 9 (d): prove_batch of BATCH witnesses (different x) with
+    BATCH workers on one card (one stream each) and with one worker, beside
+    BATCH sequential proves + self-verifies, alternating (sequential, four
+    streams, one worker, then the reverse); every batch proof must equal
+    its sequential proof."""
+    from algoplonk_tpu_torch.frontend import witness as witness_mod
+    from algoplonk_tpu_torch.parallel import prove_batch
+    from algoplonk_tpu_torch.plonk import verify as V
+    from algoplonk_tpu_torch.plonk.marshal import marshal_proof
+    from algoplonk_tpu_torch.plonk.prove import Prover
+
+    r = cc.curve.fr.modulus
+    xs = [(0xA1607 + 977 * i) % r for i in range(BATCH)]
+    circuits = [SquareChain(x=x, y=pow(x, 1 << chain, r)) for x in xs]
+    dev = torch.device("cuda", 0)
+
+    def sequential():
+        out = []
+        for c in circuits:
+            prover = Prover(cc.pk, cc.ccs, rng=False)
+            wit = witness_mod.solve(cc.ccs, c, commitment_solver=prover.bsb_solver)
+            proof = prover.prove(wit)
+            if not V.verify(cc.vk, proof, wit.public_values):
+                raise AssertionError("a sequential proof failed verification")
+            out.append(marshal_proof(cc.curve, proof))
+        return out
+
+    runs = {"sequential": sequential,
+            f"{BATCH} streams": lambda: [vp.marshal_proof() for vp in prove_batch(
+                cc, circuits, devices=[dev] * BATCH, rng=False)],
+            "1 worker": lambda: [vp.marshal_proof() for vp in prove_batch(
+                cc, circuits, devices=[dev], rng=False)]}
+    order = list(runs)
+    secs, blobs = {k: [] for k in runs}, {}
+    for i in range(rounds):
+        for name in order if i % 2 == 0 else order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blobs[name, i] = runs[name]()
+            secs[name].append(time.perf_counter() - t0)
+    want = blobs["sequential", 0]
+    same = all(b == want for b in blobs.values())
+    torch.cuda.reset_peak_memory_stats()
+    n_kernels, by_type, busy, wall = profile_device(torch, runs[f"{BATCH} streams"])
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{cc.curve.name} n = {cc.pk.n}] batch of {BATCH} proves + self-verifies "
+        "(Prover(rng=False)), "
+        f"alternating, s: " + json.dumps({k: [round(t, 3) for t in v] for k, v in secs.items()})
+        + f"; proofs a second: " + json.dumps(
+            {k: round(BATCH / min(v), 3) for k, v in secs.items()})
+        + f"; every batch proof == its sequential proof: {same}; {BATCH} streams under "
+        f"torch.profiler: {wall:.2f} s, {n_kernels} CUDA kernel launches, device busy "
+        f"{busy:.1%}, peak device memory {peak / 2**30:.3f} GiB")
+    if not same or len(want) != BATCH or len(set(want)) != BATCH:
+        raise AssertionError("the batch proofs differ from the sequential ones")
+
+
 def main() -> int:
     import torch
 
@@ -1479,7 +1698,7 @@ def main() -> int:
     # ---- phase 2: the 2^16 path, then one warm prove of it under the profiler
     cc, SquareChain, x, y, _, _, vp16, t_compile16 = drive(
         apt.BN254, apt.SetupName.TEST_ONLY_BN254, LOG_N, ck.MSM_KERNELS)
-    cc16, circuit16 = cc, SquareChain(x=x, y=y)
+    cc16, circuit16, square16 = cc, SquareChain(x=x, y=y), SquareChain
     n_kernels, by_type, busy, wall = profile_device(torch, lambda: cc.verify(SquareChain(x=x, y=y)))
     log(f"[bn254 2^{LOG_N}] warm prove + self-verify under torch.profiler: {wall:.2f} s, "
         f"{n_kernels} CUDA kernel launches, device busy {busy:.1%}; device events by type: "
@@ -1513,6 +1732,7 @@ def main() -> int:
     if not (got == plain and pre == host):
         raise AssertionError("commit-sized MSM disagrees")
     msm_split(torch, ctx, pts, mont, got, f"[bn254] {n}-point commit")
+    bn_msm = (pts, mont, got)   # phase 9's sharded MSM
 
     def gpu_equals_cpu(curve, setup, P, assignment, public):
         """Prove ``P`` with every commit on the device MSM, on the GPU and
@@ -1559,6 +1779,7 @@ def main() -> int:
     four_step_check(torch)
     cc, SquareChain, x, y, _, launches, _, _ = drive(
         apt.BN254, apt.SetupName.TEST_ONLY_BN254, LM_LOG_N, (*ck.MSM_KERNELS, *nk.KERNELS))
+    cc17, circuit17 = cc, SquareChain(x=x, y=y)   # phase 9's sharded prove
     lifts = 13 + 2 * len(cc.ccs.commitments)
     if launches["ntt_pass"] != 2 * (lifts + 1):
         raise AssertionError(f"K9 launched {launches['ntt_pass']} times, "
@@ -1591,7 +1812,7 @@ def main() -> int:
         f"proof bytes equal: {blobs['1'] == blobs['0']}")
     if blobs["1"] != blobs["0"]:
         raise AssertionError("the two quotient paths give different proofs")
-    del cc, proof, prover, wit
+    del proof, prover, wit
 
     # ---- phase 6: the BLS12-381 path on the Ethereum KZG ceremony
     bls = apt.BLS12_381
@@ -1645,6 +1866,7 @@ def main() -> int:
     want = ctx.msm_to_affine_int(pts[:n_commit], mont[:n_commit], kind="mont")
     msm_split(torch, ctx, pts[:n_commit], mont[:n_commit], want,
               f"[bls12_381] {n_commit}-point commit")
+    bls_msm = (pts[:n_commit], mont[:n_commit], want)
 
     # ---- phase 7: the kernel-test path of K4-K8
     off_path, off_path_field = {}, {}
@@ -1701,13 +1923,43 @@ def main() -> int:
         elif k["kernel"] in fk.KERNELS:
             k["phase8_launches"] = fk.LAUNCHES_BY_FIELD.get((k["kernel"], k["field"]), 0)
 
+    # ---- phase 9: sharded and batch proving (parallel/) on a mesh of
+    # MESH_SHARDS shards, all on the one card; each sharded call with the
+    # counts zeroed just before it and read just after
+    from algoplonk_tpu_torch.parallel import Mesh
+
+    t0 = time.perf_counter()
+    mesh = Mesh([dev] * MESH_SHARDS)
+    counts = Phase9Counts(torch)
+    sharded_msm_check(torch, mesh, counts, apt.BN254, *bn_msm, "[bn254]")
+    sharded_msm_check(torch, mesh, counts, bls, *bls_msm, "[bls12_381]")
+    sharded_ntt_check(torch, mesh, counts)
+    sharded_prove_check(torch, mesh, counts, cc17, circuit17, f"[bn254 2^{LM_LOG_N}]")
+    sharded_prove_check(torch, mesh, counts, bcc, BSquare(x=bx, y=by),
+                        f"[bls12_381 2^{BLS_LOG_N}]")
+    t_sharded = time.perf_counter() - t0
+    batch_check(torch, apt, cc16, square16, (1 << LOG_N) - 3)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s (sharded {t_sharded:.1f} s); launches of "
+        f"its sharded calls: {dict((k, v) for k, v in counts.by_width.items() if v)}; by field: "
+        f"{counts.by_field}")
+    for k in kernels:
+        k["phase9_launches"] = (counts.by_field.get((k["kernel"], k["field"]), 0)
+                                if k["kernel"] in fk.KERNELS
+                                else counts.by_width.get((k["kernel"], k["width"]), 0))
+    missing = [k["name"] for k in kernels if not k["phase9_launches"] and (
+        k["kernel"] in ck.MSM_KERNELS + nk.KERNELS
+        or (k["kernel"] in fk.KERNELS and k["field"].endswith("_fr")))]
+    if missing:
+        raise AssertionError(f"kernels not launched on phase 9's sharded paths: {missing}")
+
     unlaunched = [k["name"] for k in kernels if not k.get("launches")]
     if unlaunched:
         raise AssertionError(f"kernels never launched on their path: {unlaunched}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "events_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "T", "depth", "work_adds",
-            "rounds_ms", "passes", "shapes", "host_us", "launches_on", "phase8_launches")
+            "rounds_ms", "passes", "shapes", "host_us", "launches_on", "phase8_launches",
+            "phase9_launches")
     line = [{key: k[key] for key in keys if key in k} for k in kernels]
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

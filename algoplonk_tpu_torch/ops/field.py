@@ -252,6 +252,17 @@ class FieldOps:
     def from_mont(self, a):
         return self.mul(a, self._unit)
 
+    def bits_from_mont(self, a, nbits: int):
+        """Montgomery [..., W] -> [..., nbits] int32 MSB-first 0/1 bits of
+        the canonical values, on the device (the reference's
+        ``bits_from_mont``): shifts of the 32-bit words, least significant
+        word first."""
+        canon = self.from_mont(a)
+        shifts = torch.arange(32, dtype=torch.int32, device=canon.device)
+        bits = (canon[..., :, None] >> shifts) & 1
+        bits = bits.reshape(canon.shape[:-1] + (32 * self.W,))
+        return bits[..., :nbits].flip(-1)
+
     # ------------------------------------------------------- host helpers
 
     def encode(self, values) -> torch.Tensor:

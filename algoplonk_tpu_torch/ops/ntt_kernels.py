@@ -209,7 +209,8 @@ class FourStepPlan:
     """Scrambled-order four-step NTT over Fr for one (curve, 2^log_n,
     device).  Evaluation at domain index k = brev(r1) + brev(r2) n1 is
     stored at row p = r1 n2 + r2; coefficient order is natural on both
-    ends.  Tables are built on the plan's device at first use and kept."""
+    ends.  Tables are built on the plan's device at first use and kept
+    until ``drop_tables``."""
 
     def __init__(self, curve_name: str, log_n: int, device):
         if log_n < 4:
@@ -226,6 +227,7 @@ class FourStepPlan:
         self.omega = domain_generator(curve_name, log_n)
         self.column = (self.n2, 1)   # K9 strides of a column of [n1, n2]
         self._tables: dict = {}
+        self._readers: dict = {}   # key -> the CUDA streams recorded on its table
 
     def _table(self, key, build):
         t = self._tables.get(key)
@@ -233,7 +235,31 @@ class FourStepPlan:
             t = build()
             settle(self.f.device)
             self._tables[key] = t
+        if t.is_cuda:
+            # Each stream that reads a table (parallel/batch_prove.py) is
+            # recorded on it once, so that the block drop_tables frees waits
+            # for the work queued on every one of them.
+            s = torch.cuda.current_stream(t.device)
+            readers = self._readers.setdefault(key, set())
+            if s not in readers:
+                t.record_stream(s)
+                readers.add(s)
         return t
+
+    def drop_tables(self, inverse: bool | None = None) -> None:
+        """Free the cached tables of one direction (or of both with None):
+        its cross and coset tables and its passes' twiddles (the
+        reference's ``drop_tables``, ntt_pallas.py:316-326).  The next use
+        rebuilds each, word for word.  At 2^22 a cross or coset table is
+        [2^22, 8] int32, 128 MiB; the round-3 quotient of a 2^20 circuit
+        evicts the direction it is not about to run.  It waits for nothing:
+        ``_table`` records each stream that reads a table, so the caching
+        allocator reuses a freed block only after the work queued on them
+        is done."""
+        for key in [k for k in self._tables if k[0] in ("tw", "cross", "coset")]:
+            if inverse is None or key[-1] == inverse:
+                del self._tables[key]
+                self._readers.pop(key, None)
 
     def _outer(self, rowv, colv):
         """Host power vectors [a], [b] -> their product grid [a * b, W]."""

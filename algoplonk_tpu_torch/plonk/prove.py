@@ -17,7 +17,9 @@ transcript, so the proof bytes equal the reference's for the same blinding
 
 ``phase_seconds`` records the host time of each round after the prover's
 stream has drained (the commits already wait on it, so the marks cost
-nothing).
+nothing).  ``AP_PROVE_PROFILE=1`` prints the reference's profile on stderr:
+each round's seconds and, on the four-step path, round 3's seven
+sub-phases, with the card's memory in use and its peak (``_profile``).
 
 With a mesh (``parallel/mesh.py``), as in the reference, every commit runs
 the sharded MSM and every size-n iNTT, quotient lift and final coset iNTT
@@ -29,6 +31,7 @@ proof bytes equal the single-device prove's.
 from __future__ import annotations
 
 import os
+import sys
 import time
 from dataclasses import dataclass, field
 
@@ -49,6 +52,11 @@ from ..parallel.ntt_sharded import sharded_ntt_fn
 from ..utils.compile_cache import enable_persistent_cache
 from .keys import ProvingKey
 
+# Round 3's four-step quotient evicts the tables of the direction it is not
+# about to run from a coset of 2^EVICT_MIN_LOG on: the reference's default
+# (its AP_QUOTIENT_SYNC_MIN_LOG, prove.py:511-513).  A constant here: on an
+# 80 GB card no size the port runs needs another value.
+EVICT_MIN_LOG = 21
 
 @dataclass
 class Proof:
@@ -143,6 +151,7 @@ class Prover:
         self.inv_zh_pattern = self.f.encode(self.inv_zh_pat_ints)
         self._bsb = []  # per-proof BSB22 state, filled by bsb_solver
         self.phase_seconds: dict[str, float] = {}
+        self._prof = False   # AP_PROVE_PROFILE=1, read at each prove
 
     # ---------------------------------------------------------------- utils
 
@@ -328,8 +337,19 @@ class Prover:
         (coset x values, Z_H patterns) are built in scrambled order, so the
         h polynomials are the batch-major path's exactly.
 
-        The reference's HBM discipline for cosets of 2^21 and more (sync
-        barriers, table eviction, buffer donation) is not carried over."""
+        Carried over from the reference's memory discipline
+        (prove.py:493-598): from a coset of 2^EVICT_MIN_LOG (a 2^19-row
+        circuit) on, the plan's tables of the
+        direction not about to run are evicted (``drop_tables``) before the
+        lifts and before the iNTT; every operand is dropped after its last
+        use, at the reference's points, and z4 - 1 is formed at its single
+        use.  Not carried over: the ``sync`` barriers, which bound JAX's
+        asynchronous queue, whose pending programs keep their operands
+        alive (PyTorch's caching allocator reuses a freed block in stream
+        order, so a barrier frees nothing), and buffer donation, for which
+        dropping the last reference stands in.
+
+        With AP_PROVE_PROFILE=1, the reference's seven r3 sub-phase marks."""
         f, r, n, pk = self.f, self.r, self.pk.n, self.pk
         fsp = four_step_plan(self.curve.name, pk.log_n + 2, self.device)
         k1 = self.curve.coset_shift
@@ -338,11 +358,16 @@ class Prover:
         gamma_l = self._const(gamma)
         g = self.coset_g
         N4 = 4 * n
+        big = pk.log_n + 2 >= EVICT_MIN_LOG
 
         def lift(coeffs):
             return fsp.ntt_scr(polyops.pad_rows(coeffs, N4), coset_shift=g)
 
+        self._profile("r3.qk+tables")
+        if big:
+            fsp.drop_tables(inverse=True)   # the forward transforms run first
         l4, r4, o4 = lift(l_c), lift(r_c), lift(o_c)
+        self._profile("r3.wire-lifts")
         gate = f.mul(lift(pk.ql_c), l4)
         gate = f.add(gate, f.mul(lift(pk.qr_c), r4))
         gate = f.add(gate, f.mul(lift(pk.qm_c), f.mul(l4, r4)))
@@ -350,6 +375,7 @@ class Prover:
         gate = f.add(gate, lift(qk_c_complete))
         for i, b in enumerate(bsb):
             gate = f.add(gate, f.mul(lift(pk.qcp_c[i]), lift(b["c_c"])))
+        self._profile("r3.gate(5 lifts+mul)")
 
         xs = fsp.coset_x_scr(g)
         bxs = f.mul(xs, beta_l)
@@ -357,7 +383,8 @@ class Prover:
         A = f.mul(A, f.add(f.add(r4, f.mul(bxs, self._const(k1))), gamma_l))
         A = f.mul(A, f.add(f.add(o4, f.mul(bxs, self._const(k2))), gamma_l))
         del bxs
-        # L1 denominators n (x - 1), inverted in independent chunks
+        # L1 denominators n (x - 1), inverted in independent chunks while
+        # xs is live (a cached table here), before z4 is lifted
         nconst = self._const(n)
         chunk = min(n, 1 << 18)
         inv_all = torch.cat([
@@ -366,10 +393,12 @@ class Prover:
             )
             for q in range(N4 // chunk)
         ])
+        del xs
+        self._profile("r3.A+inversion")
+
         z4 = lift(z_c)
         perm = f.mul(A, z4)
         del A
-
         D = f.add(f.add(l4, f.mul(lift(pk.s1_c), beta_l)), gamma_l)
         D = f.mul(D, f.add(f.add(r4, f.mul(lift(pk.s2_c), beta_l)), gamma_l))
         D = f.mul(D, f.add(f.add(o4, f.mul(lift(pk.s3_c), beta_l)), gamma_l))
@@ -377,6 +406,7 @@ class Prover:
         zw_c = f.mul(z_c, polyops.powers(f, self._const(pk.omega), z_c.shape[0]))
         perm = f.sub(f.mul(D, lift(zw_c)), perm)
         del D, zw_c
+        self._profile("r3.perm(5 lifts)")
 
         L1 = f.mul(f.mul(fsp.tile_by_k_mod4(self.zh_pat_ints), inv_all), f.sub(z4, f.one))
         del inv_all, z4
@@ -387,7 +417,12 @@ class Prover:
         del gate, perm, L1
         h_ev = f.mul(num_total, fsp.tile_by_k_mod4(self.inv_zh_pat_ints))
         del num_total
+        self._profile("r3.L1+combine")
+        if big:
+            fsp.drop_tables(inverse=False)  # the lifts are done
         h_c = fsp.intt_scr(h_ev, coset_shift=g)
+        del h_ev
+        self._profile("r3.4n-iNTT")
         m = n + 2
         return h_c[:m], h_c[m : 2 * m], h_c[2 * m : 3 * m]
 
@@ -401,6 +436,25 @@ class Prover:
         now = time.perf_counter()
         self.phase_seconds[name] = now - self._t
         self._t = now
+
+    def _profile(self, name: str) -> None:
+        """With AP_PROVE_PROFILE=1, print the seconds since the last mark on
+        stderr, as the reference's profile does (prove.py:612-641); on the
+        card, after draining the prover's own stream, with the memory in use
+        and its peak.  The profile keeps a clock of its own: it leaves
+        ``phase_seconds`` as it is."""
+        if not self._prof:
+            return
+        on_card = self.device.type == "cuda"
+        if on_card:
+            torch.cuda.current_stream(self.device).synchronize()
+        now = time.perf_counter()
+        mem = (f"  [hbm {torch.cuda.memory_allocated(self.device) / 2**30:.2f} GiB in "
+               f"use, peak {torch.cuda.max_memory_allocated(self.device) / 2**30:.2f}]"
+               if on_card else "")
+        print(f"  prove phase {name}: {now - self._prof_t:.2f}s{mem}", file=sys.stderr,
+              flush=True)
+        self._prof_t = now
 
     def prove(self, witness: Witness) -> Proof:
         pk, f, r, n = self.pk, self.f, self.r, self.pk.n
@@ -416,7 +470,8 @@ class Prover:
             )
         bsb_coms = [b["com"] for b in bsb]
         self.phase_seconds = {}
-        self._t = time.perf_counter()
+        self._prof = os.environ.get("AP_PROVE_PROFILE", "") == "1"
+        self._t = self._prof_t = time.perf_counter()
 
         # ---- round 1: wire polynomials + commitments (blinded)
         l_ints, r_ints, o_ints = wire_values(self.ccs, witness, n)
@@ -428,6 +483,7 @@ class Prover:
         r_com = self._commit(r_c)
         o_com = self._commit(o_c)
         self._mark("r1")
+        self._profile("r1 wires+commits")
         gamma_d, gamma = self.tr.gamma(vk, pub, l_com, r_com, o_com)
         beta_d, beta = self.tr.beta(gamma_d)
 
@@ -457,6 +513,7 @@ class Prover:
         z_com = self._commit(z_c)
         del num, den, ratio, pp, z_ev, id2, id3, omega_pows, l_ev, r_ev, o_ev
         self._mark("r2")
+        self._profile("r2 grand product")
         alpha_d, alpha = self.tr.alpha(beta_d, bsb_coms, z_com)
 
         # ---- round 3: quotient on the 4n coset.  qk completion: only the
@@ -476,6 +533,8 @@ class Prover:
         h0 = self._commit(h0_c)
         h1 = self._commit(h1_c)
         h2 = self._commit(h2_c)
+        self._profile("r3.H-commits x3")
+        self._profile("r3 quotient")
         self._mark("r3")
         zeta_d, zeta = self.tr.zeta(alpha_d, h0, h1, h2)
 
@@ -539,6 +598,7 @@ class Prover:
         lin = acc(lin, h2_c, (-zh_z) % r * zeta_m % r * zeta_m % r)
         lin_com = self._commit(lin)
         self._mark("r4")
+        self._profile("r4 evals+linearization")
 
         # ---- round 5: batched opening at zeta
         fold_d, fold_r = self.tr.fold(
@@ -556,6 +616,7 @@ class Prover:
         q2_coeffs, _ = polyops.kzg_quotient(f, z_c, self._const(wzeta))
         opening_z_omega = self._commit(q2_coeffs[:mlin])
         self._mark("r5")
+        self._profile("r5 openings")
         return Proof(
             l_com=l_com, r_com=r_com, o_com=o_com,
             h0=h0, h1=h1, h2=h2,

@@ -11,9 +11,13 @@ host by ``load_trusted``, which caches the points under ``.cache/``, and
 encoded on the device.
 
 The result is an ``SRS`` whose ``g1_limbs`` field holds the port's
-``[N, 2, W]`` Montgomery word tensor on the device.  It is cached under
-``.cache/`` as canonical big-endian coordinates, in files named
-``torch_testsrs_*`` (the reference's cache files hold 12-bit limbs).
+``[N, 2, W]`` Montgomery word tensor on the device.  At every count the
+test SRS is made as the reference makes it above 2^16 points
+(``_test_only_srs_large``): the tau powers, their bits and the
+double-and-add stay on the device, and the cache under ``.cache/``
+(``torch_testsrs_words_*``) holds the canonical 32-bit words, so no point
+passes through a Python int on either side.  The reference's cache files
+hold 12-bit limbs.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import torch
 
 from ..fields.params import CurveParams
 from ..host import fp as hfp
+from ..ops import poly as polyops
+from ..ops.field import field_ops
 from .registry import (  # noqa: F401 (re-exported)
     CACHE_DIR,
     SRS,
@@ -37,60 +43,48 @@ from .registry import (  # noqa: F401 (re-exported)
 )
 from ..ops.curve import curve_ops
 
-_CHUNK = 1 << 16  # points per scalar_mul batch
+_CHUNK = 1 << 16  # points per scalar_mul batch, as in the reference
 
 
-def _g1_table(curve: CurveParams, g1_count: int, device) -> torch.Tensor:
-    """[g1_count, 2, W] words of [tau^i] G1 computed on ``device``."""
+def _g1_table(curve: CurveParams, g1_count: int, device, chunk: int = _CHUNK) -> torch.Tensor:
+    """[g1_count, 2, W] words of [tau^i] G1, made on ``device`` as the
+    reference's large path makes them (registry.py:243-266): the powers of
+    tau's Montgomery form (``poly.powers``), their bits (``bits_from_mont``)
+    and one double-and-add per chunk of ``chunk`` points, the last chunk
+    cut to what is left.  A chunk's bits are [chunk, 254] int32; 2^20
+    points' would be 1 GB."""
     ops = curve_ops(curve, device)
-    r = curve.fr.modulus
-    tau = _test_tau(curve)
-    scalars, t = [], 1
-    for _ in range(g1_count):
-        scalars.append(t)
-        t = t * tau % r
+    fr = field_ops(curve.fr, device)
+    nbits = curve.fr.modulus.bit_length()
+    pows = polyops.powers(fr, fr.encode([_test_tau(curve)])[0], g1_count)
     pieces = []
-    for lo in range(0, g1_count, _CHUNK):
-        part = scalars[lo : lo + _CHUNK]
+    for lo in range(0, g1_count, chunk):
+        part = pows[lo : lo + chunk]
         base = ops.g1_gen_affine.expand(len(part), 2, ops.W)
-        jac = ops.scalar_mul(base, ops.scalar_bits_array(part))
-        pieces.append(ops.to_affine(jac))
+        pieces.append(ops.to_affine(ops.scalar_mul(base, fr.bits_from_mont(part, nbits))))
     return torch.cat(pieces)
 
 
-def _load_cached(path: str, curve: CurveParams, device):
-    z = np.load(path)
-    nb = curve.fp.nbytes
-    pts = [
-        (int.from_bytes(bytes(x), "big"), int.from_bytes(bytes(y), "big"))
-        for x, y in zip(z["xs"].reshape(-1, nb), z["ys"].reshape(-1, nb))
-    ]
-    return curve_ops(curve, device).encode_affine(pts)
-
-
-def _save_cached(path: str, curve: CurveParams, table: torch.Tensor) -> None:
-    nb = curve.fp.nbytes
-    pts = curve_ops(curve, table.device).decode_affine(table)
-    xs = np.frombuffer(b"".join(P[0].to_bytes(nb, "big") for P in pts), np.uint8)
-    ys = np.frombuffer(b"".join(P[1].to_bytes(nb, "big") for P in pts), np.uint8)
-    os.makedirs(CACHE_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".npz", dir=CACHE_DIR)
-    os.close(fd)
-    np.savez(tmp, xs=xs.reshape(-1, nb), ys=ys.reshape(-1, nb))
-    os.replace(tmp, path)
-
-
 def test_only_srs(curve: CurveParams, g1_count: int, device="cuda",
-                  use_cache: bool = True) -> SRS:
+                  use_cache: bool = True, chunk: int = _CHUNK) -> SRS:
     """Deterministic test SRS (NOT for production): [tau^i] G1 for
-    i < g1_count on ``device``, and ([1] G2, [tau] G2)."""
-    path = os.path.join(CACHE_DIR, f"torch_testsrs_{curve.name}_{g1_count}.npz")
+    i < g1_count on ``device`` (``_g1_table`` in chunks of ``chunk``), and
+    ([1] G2, [tau] G2).  Cached as canonical 32-bit words (uint32
+    [N, 2, W]), which move to and from the device whole and enter or leave
+    Montgomery form there."""
+    path = os.path.join(CACHE_DIR, f"torch_testsrs_words_{curve.name}_{g1_count}.npz")
+    fq = field_ops(curve.fp, device)
     if use_cache and os.path.exists(path):
-        table = _load_cached(path, curve, device)
+        words = np.load(path)["g1"].view(np.int32)
+        table = fq.to_mont(torch.from_numpy(words).to(fq.device))
     else:
-        table = _g1_table(curve, g1_count, device)
+        table = _g1_table(curve, g1_count, device, chunk)
         if use_cache:
-            _save_cached(path, curve, table)
+            os.makedirs(CACHE_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".npz", dir=CACHE_DIR)
+            os.close(fd)
+            np.savez(tmp, g1=fq.from_mont(table).cpu().numpy().view(np.uint32))
+            os.replace(tmp, path)   # a reader never sees it half written
     F2 = hfp.GF2(curve.fp.modulus, curve.fp2_nonresidue)
     g2_gen = (curve.g2_x, curve.g2_y)
     return SRS(

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times of one tree of the port, for comparing two trees on one card.
 
-    python3 bench_port.py [--root DIR] [--parts msm,ntt,prove,lm,curve] [--prove] [--reps N]
+    python3 bench_port.py [--root DIR] [--parts msm,ntt,prove,lm,curve,bytes] [--prove] [--reps N]
 
 ``--root`` is the directory that holds the ``algoplonk_tpu_torch`` package
 to measure (default: this file's directory), so that a checkout of another
@@ -53,6 +53,10 @@ use and caches its test SRS under its own ``.cache/``.
   rate too), at the wrapper's threads per lane, and where the tree's K5, K6
   or K7 takes a thread count (``mixed_threads``, ``multi_threads``) at
   every one of them too.
+- ``bytes``: the sha256 of ``Prover(rng=False)``'s proof bytes of
+  chip_smoke.py's SquareChain at BN254 2^16 and 2^17 on the test SRS and
+  at BLS12-381 2^14 on the Ethereum KZG ceremony: two trees that prove
+  alike print equal digests.
 
 The measuring code is this file's and the chip_smoke.py beside it, whatever
 ``--root`` names, so that both trees are measured by the same code.
@@ -207,10 +211,35 @@ def lm_trace(torch, apt, record):
            prove_verify_s=wall)
 
 
+def bytes_part(torch, apt, record):
+    import hashlib
+
+    from algoplonk_tpu_torch.frontend import witness as witness_mod
+    from algoplonk_tpu_torch.plonk.marshal import marshal_proof
+    from algoplonk_tpu_torch.plonk.prove import Prover
+
+    for curve, setup, log_n in (
+            (apt.BN254, apt.SetupName.TEST_ONLY_BN254, cs.LOG_N),
+            (apt.BN254, apt.SetupName.TEST_ONLY_BN254, cs.LM_LOG_N),
+            (apt.BLS12_381, apt.SetupName.ETHEREUM_KZG_CEREMONY_BLS12_381, cs.BLS_LOG_N)):
+        r = curve.fr.modulus
+        x = 0xA1607 % r
+        SquareChain, chain = cs.square_chain(apt, log_n)
+        cc = apt.compile(SquareChain, curve, setup, device=torch.device("cuda"))
+        prover = Prover(cc.pk, cc.ccs, rng=False)
+        wit = witness_mod.solve(cc.ccs, SquareChain(x=x, y=pow(x, 1 << chain, r)),
+                                commitment_solver=prover.bsb_solver)
+        blob = marshal_proof(curve, prover.prove(wit))
+        record("proof_bytes", curve=curve.name, log_n=log_n, nbytes=len(blob),
+               sha256=hashlib.sha256(blob).hexdigest())
+        del cc, prover
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--parts", default="msm", help="comma list of msm, ntt, prove, lm, curve")
+    ap.add_argument("--parts", default="msm",
+                    help="comma list of msm, ntt, prove, lm, curve, bytes")
     ap.add_argument("--prove", action="store_true", help="also compile and prove")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -251,6 +280,8 @@ def main() -> int:
         ntt_part(torch, apt, args.reps, record)
     if "lm" in parts:
         lm_trace(torch, apt, record)
+    if "bytes" in parts:
+        bytes_part(torch, apt, record)
     if "prove" in parts:
         for curve, setup, log_n in (
                 (apt.BN254, apt.SetupName.TEST_ONLY_BN254, cs.LOG_N),

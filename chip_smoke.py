@@ -16,7 +16,8 @@ result line):
    width and at 2^20 lanes, where its bytes bound is far above a launch's
    floor; K3's window scan over the 24
    windows of the super sums (E = 257 and 513 at W = 8, the 2^16 and 2^17
-   commits; E = 65 at W = 12), beside the same scan run as one K3 launch
+   commits; E = 65 at W = 12; E = 1024, its limit, at both widths: a
+   2^18-point MSM piece of the 2^20 path), beside the same scan run as one K3 launch
    per round (the MSM's scan before it had its own kernel), and K3's phase
    4 on 24 windows of D = 1024 at both widths, each printed with its bound
    and the depth of its chain of dependent point operations (the scan's
@@ -26,7 +27,10 @@ result line):
    at the phase-1 and phase-3 widths; K2 is held to its plain version at
    every thread count per lane T and timed at every T at the phase-2a
    widths of the three commits (6,272 and 12,416 lanes at W = 8, 1,664 at
-   W = 12); K5 and K6 at every thread count per lane T_m and K7 at every T
+   W = 12), and both held to their plain versions and timed at the widths
+   of a 2^18-point MSM piece (K1 24 x 16,384 lanes on a table of 2^18 + 1
+   rows, K2 24 x 1,024 lanes) at both widths;
+   K5 and K6 at every thread count per lane T_m and K7 at every T
    (K5 and K6 at the phase-1 width, K7 over 16 steps at the phase-2a
    width), each held word for word to its plain version at that count and
    timed, the wrapper's count marked; K4, K5 and K6 timed on the device
@@ -36,15 +40,18 @@ result line):
    neg) on each of the four fields at the prove's shapes (2^18 contiguous
    rows, K8 also with one multiplicand arbitrary below R, held to host
    integers; 256 rows against one element; an NTT stage's strided halves
-   against its strided twiddle slice), each timed on the device with its
-   inputs read from HBM (the L2 flushed before each launch) beside its
+   against its strided twiddle slice; on the two scalar fields also the
+   2^22 contiguous rows of phase 10's round-3 coset), each timed on the
+   device with its inputs read from HBM (the L2 flushed before each launch) beside its
    bound, and the host microseconds of one field_mul call; and the NTT
    pass kernel K9 on both scalar fields (BN254's lazy, BLS12-381's strict)
    at the four pass shapes of the 2^17 path's four-step transforms of 2^19
    (C = 512 and 1024, forward and inverse, with and without the fused entry
    and exit multiplies), in the column layout through which the transforms
-   run the fused passes and contiguous, each timed beside its bound
-   recounted without the multiplies by one and beside PR 2-7's count.
+   run the fused passes and contiguous, and at the four of the 2^20 path's
+   transforms of 2^22 (C = 2048, in the transforms' layouts; the plain
+   versions there timed by one call), each timed beside its bound
+   recounted without the multiplies by one and beside the count with them.
    Every random residue of this phase is drawn from all of [0, p), edge
    values among them.  Every plain version must launch no kernel (all
    launch counters are read around each plain call);
@@ -131,7 +138,22 @@ result line):
    proof byte-equal to its sequential proof (then the BATCH-stream batch
    under torch.profiler).  K1, K2, K3 (its scan and phase 4 too) at both
    widths, K8 and field_add_sub on both scalar fields and K9 must have
-   launched in (a)-(c).
+   launched in (a)-(c);
+10. the 2^20 path (the JAX package's headline size, BASELINE.json), on
+   BN254 and then BLS12-381, both on the test SRS: the SRS of 2^20 + 3
+   points built on the device (setups/srs.py's large path) and timed, the
+   2^20-constraint SquareChain compiled (timed) and, with the counts
+   zeroed just before, proved and self-verified through the four-step
+   quotient (its 2^22 coset: K9 at C = 2048); the proof must have the
+   curve's length and a flipped public input must be rejected; K1, K2,
+   K3 (its scan at E = 1024, phase 4, and add_window_sums over the MSM's
+   four 2^18-point pieces and its tail piece), K8, field_add_sub and K9
+   (28 times) must have launched.  Then five warm Prover(rng=False)
+   proves of one witness: under AP_PROVE_PROFILE=1 (round 3 split into
+   its sub-phases, the memory in use and its peak, launches per prove),
+   then unprofiled with table eviction, without it (plonk/prove.py's
+   EVICT_MIN_LOG raised to 99) twice, and with it; all verify, their
+   bytes must be equal, and each one's seconds and peak are printed.
 
 Output: timings on stdout; before the last line the card's name and power
 limit, then a JSON line of per-kernel numbers: launches from the path that
@@ -140,10 +162,11 @@ MSM kernels at W = 12 from the BLS12-381 path, K4-K7 from the kernel-test
 path, the field kernels from the prove + self-verify of their curve's path,
 or the kernel-test path's for a field that prove does not compute in;
 "phase8_launches" the same kernel's in phase 8, "phase9_launches" in
-phase 9's sharded calls), the time of
+phase 9's sharded calls, "phase10_launches" in phase 10's prove +
+self-verify of the kernel's curve, K9's BN254's), the time of
 kernel and plain version at phase 1's shapes (K9's ms and plain_ms are the
-sums over BN254's four main-path passes, every pass of both fields itemised
-under "passes"; K1's, K2's, K4's and the
+sums over BN254's four main-path passes of 2^19, every pass of both fields
+and both sizes itemised under "passes"; K1's, K2's, K4's and the
 field kernels' other shapes are itemised under "shapes"; the field kernels'
 ms is at 2^18 contiguous rows, inputs from HBM; K4's, K5's and K6's ms is
 device time, with CUDA events over back-to-back launches as "events_ms"),
@@ -168,6 +191,7 @@ import time
 
 LOG_N = 16        # the BN254 2^16 path (batch-major quotient)
 LM_LOG_N = 17     # the BN254 2^17 path (four-step quotient, K9)
+LARGE_LOG_N = 20  # phase 10: the JAX package's headline size (BASELINE.json), both curves
 BLS_LOG_N = 14    # the BLS12-381 path: the Ethereum KZG ceremony's cap
 BLS_MSM_POINTS = 1 << 15   # every G1 point of that ceremony
 HOST_PREFIX = 4096         # points checked against the host Pippenger
@@ -689,6 +713,50 @@ def kernel_phase(torch, rng, curve, n_commit, bound, suffix, k2_lanes=(), scan_E
     return results
 
 
+def piece_shapes(torch, rng, curve, bound, results, suffix):
+    """K1 and K2 at the widths of one full MSM piece (M.CHUNK points: a
+    commit of the 2^20 path runs four of them), K1 gathering from a table
+    of the piece's size, each held word for word to its plain version
+    (timed once) and timed (CUDA events) beside its bound; added to the
+    "shapes" of the kernel's entry in ``results``."""
+    from algoplonk_tpu_torch.ops import curve_kernels as ck
+    from algoplonk_tpu_torch.ops import msm as M
+
+    s = CommitInputs(torch, rng, curve, M.CHUNK)
+    ops, W = s.ops, s.ops.W
+    entry = {k["name"]: k for k in results}
+    acc, _, _, packed = s.k1_inputs(s.w1p)
+    acc2, qs = s.k2_inputs(s.wsbp)
+    T = ck.scan_threads(s.wsbp, M.SUPER)
+    for name, lanes, kern, plain, montmuls, moved in (
+            ("mixed_add_signed_multi", s.w1p,
+             lambda: ck.mixed_add_signed_multi(ops, acc, s.table, packed),
+             lambda: ck.plain_mixed_add_signed_multi(ops, acc, s.table, packed),
+             M.FUSE_STEPS * s.w1p * MIXED_ADD_MULS, nbytes(acc, s.table, packed)),
+            ("jac_add_multi_scan", s.wsbp,
+             lambda: ck.jac_add_multi_scan(ops, acc2, qs),
+             lambda: ck.plain_jac_add_multi_scan(ops, acc2, qs),
+             M.SUPER * s.wsbp * JAC_ADD_MULS, nbytes(acc2, qs))):
+        out_k = kern()
+        torch.cuda.synchronize()
+        out_p, plain_ms = plain_once(torch, plain, name + suffix)
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"{name}{suffix} at {lanes} lanes (an MSM piece) disagrees "
+                                 "with its plain version")
+        ms = cuda_ms(kern, 20)
+        bound_ms, bound_by = bound(W, montmuls, moved + nbytes(out_k))
+        shape = {"lanes": lanes, "piece": M.CHUNK, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0}
+        if name == "mixed_add_signed_multi":
+            shape["table_rows"] = s.nrows
+        else:
+            shape.update(T=T, picked=True)
+        entry[name + suffix]["shapes"].append(shape)
+        log(f"{name}{suffix} at an MSM piece's width ({M.CHUNK} points, {lanes} lanes): exact "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{ms / bound_ms:.2f}x")
+
+
 CANON_LANES = 1 << 20   # K4's large shape: [3, W, 2^20], 201 MB (W = 8) to 302 MB moved
 
 
@@ -733,12 +801,13 @@ def plain_launches_nothing(fn, what):
 FIELD_ROWS = 1 << 18   # the largest field op of a prove: the 4n coset at 2^16
 
 
-def field_shapes(torch, f, g):
+def field_shapes(torch, f, g, large: bool):
     """The operands of the field kernels at the prove's shapes: 2^18
     contiguous rows (with one multiplicand arbitrary below R), 256 rows
     against one element (a step of the blocked scans), and an NTT stage's
     strided halves of a 2^18 coset against its strided twiddle slice (stage
-    half h = 512, ops/ntt.py)."""
+    half h = 512, ops/ntt.py); with ``large`` (a scalar field), also the
+    2^22 rows of phase 10's round-3 coset."""
     n, h = FIELD_ROWS, 512
     a, b = random_residues(torch, f, n, g), random_residues(torch, f, n, g)
     a[:3] = f.encode([0, 1, f.fp.modulus - 1])
@@ -746,14 +815,20 @@ def field_shapes(torch, f, g):
     arb = arb.to(torch.int32).to(f.device)
     x = random_residues(torch, f, n, g).reshape(n // (2 * h), 2, h, f.W)
     tw = random_residues(torch, f, n // 2, g)[:: n // (2 * h)][:h]
-    return [(f"{n} rows", a, b), (f"{n} rows, a below R", arb, b),
-            ("256 rows x 1", a[:256], b[7]), (f"ntt halves {n // (2 * h)}x{h}", x[:, 1], tw),
-            (f"ntt u, v {n // (2 * h)}x{h}", x[:, 0], x[:, 1])]
+    shapes = [(f"{n} rows", a, b), (f"{n} rows, a below R", arb, b),
+              ("256 rows x 1", a[:256], b[7]), (f"ntt halves {n // (2 * h)}x{h}", x[:, 1], tw),
+              (f"ntt u, v {n // (2 * h)}x{h}", x[:, 0], x[:, 1])]
+    if large:
+        big = 4 << LARGE_LOG_N
+        shapes.append((f"{big} rows", random_residues(torch, f, big, g),
+                       random_residues(torch, f, big, g)))
+    return shapes
 
 
 def field_phase(torch, apt, bound):
     """K8 and field_add_sub against their plain versions on each of the four
-    fields at the prove's shapes (``field_shapes``; K8 with one operand
+    fields at the prove's shapes (``field_shapes``, the 2^22 rows of phase
+    10's coset on the scalar fields; K8 with one operand
     arbitrary below R against host integers), each timed on the device with
     its inputs read from HBM (the L2 flushed before each launch) and left in
     the L2, beside its bound; every plain call must launch nothing.  Then
@@ -772,7 +847,7 @@ def field_phase(torch, apt, bound):
             f = field_ops(fp, "cuda")
             by_kernel = {"field_mul": [], "field_add_sub": []}
             worst = 0
-            for shape, a, b in field_shapes(torch, f, g):
+            for shape, a, b in field_shapes(torch, f, g, fp is curve.fr):
                 ops = [("field_mul", "mul", fk.field_mul, plain_mul, (a, b))]
                 if "below R" not in shape:
                     ops += [("field_add_sub", "add", fk.field_add, plain_add, (a, b)),
@@ -869,9 +944,22 @@ def k9_shapes(fsp):
 def k9_montmuls(N: int, C: int, fused: bool, skip_ones: bool = True) -> int:
     """Montgomery multiplies a K9 pass must do: N/2 per stage, less the
     (N / C)(C - 1) butterflies whose twiddle is one, plus the entry and exit
-    multiplies; with skip_ones False, the count PR 2-7 bounded K9 by."""
+    multiplies; with skip_ones False, the older count with the multiplies by one."""
     n = N // 2 * (C.bit_length() - 1) - (N // C * (C - 1) if skip_ones else 0)
     return n + (2 * N if fused else 0)
+
+
+def plain_once(torch, fn, what):
+    """One call of a plain version, which must launch nothing, and its
+    milliseconds (CUDA events around that one call): at the 2^20 path's
+    shapes a plain version takes seconds, so it runs once."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = plain_launches_nothing(fn, what)
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def ntt_kernel_phase(torch, bound):
@@ -879,56 +967,69 @@ def ntt_kernel_phase(torch, bound):
     (BN254's runs lazy, BLS12-381's strict) at the four pass shapes of the
     2^17 path's four-step transforms of 2^19 (n1 = 512, n2 = 1024), in the
     layouts the transforms run them (P1 and P1' in the column layout), the
-    fused shapes also contiguous, on random residues with edge values.  Each
-    is timed on the device (torch.profiler) beside its bound, recounted
-    without the multiplies by one, and the bound of PR 2-7's count.  ms,
-    plain_ms and bound_ms are BN254's sums over its four main-path passes."""
+    fused shapes also contiguous, and at the four of the 2^20 path's
+    transforms of 2^22 (n1 = n2 = 2048, the largest C), in the transforms'
+    layouts only, on random residues with edge values.  Each is timed on
+    the device (torch.profiler) beside its bound, recounted without the
+    multiplies by one, and the bound of the count with them.  ms, plain_ms and
+    bound_ms are BN254's sums over its four main-path passes of 2^19."""
     import algoplonk_tpu_torch as apt
     from algoplonk_tpu_torch.ops import ntt_kernels as nk
 
     passes = []
-    for curve in (apt.BN254, apt.BLS12_381):
-        fsp = nk.four_step_plan(curve.name, LM_LOG_N + 2, "cuda")
-        f, N = fsp.f, fsp.n
-        g = torch.Generator(device="cpu").manual_seed(9)
-        for C, inverse, fused in k9_shapes(fsp):
-            x = random_residues(torch, f, N, g)
-            tw = fsp.twiddles(C, inverse)
-            kw = {}
-            if fused:
-                kw = dict(entry=random_residues(torch, f, N, g),
-                          exit_=random_residues(torch, f, N, g))
-            layouts = [("column", fsp.column), ("contiguous", None)] if fused else [
-                ("contiguous", None)]
-            for layout, st in layouts:
-                lk = dict(kw, in_strides=st, out_strides=st)
-                kern = lambda: nk.ntt_pass(f, x, tw, C, inverse, **lk)          # noqa: E731
-                plain = lambda: nk.plain_ntt_pass(f, x, tw, C, inverse, **lk)   # noqa: E731
-                out_k = kern()
-                torch.cuda.synchronize()
-                out_p = plain_launches_nothing(plain, "ntt_pass")
-                diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
-                shape = (f"{curve.name} {'dit' if inverse else 'dif'} N={N} C={C}"
-                         + (" entry+exit" if fused else "") + f" {layout}")
-                if diff != 0:
-                    raise AssertionError(f"ntt_pass {shape}: kernel disagrees with its plain version")
-                ms = device_ms(torch, kern, 20, "ntt_pass")
-                plain_ms = cuda_ms(plain, 1)
-                moved = nbytes(x, tw, out_k, *kw.values())
-                bound_ms, bound_by = bound(f.W, k9_montmuls(N, C, fused), moved)
-                old_ms, _ = bound(f.W, k9_montmuls(N, C, fused, skip_ones=False), moved)
-                log(f"ntt_pass {shape}: exact kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-                    f"bound {bound_ms:.4f} ms ({bound_by}; PR 2-7 count {old_ms:.4f}), "
-                    f"{ms / bound_ms:.2f}x")
-                passes.append({"shape": shape, "field": f.fp.name, "main_path": layout != "contiguous"
-                               or not fused, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                               "bound_by": bound_by, "bound_old_ms": old_ms, "lazy": nk.lazy_headroom(f)})
-    main = [p for p in passes if p["main_path"] and p["field"] == "bn254_fr"]
+    for log_sz in (LM_LOG_N + 2, LARGE_LOG_N + 2):
+        for curve in (apt.BN254, apt.BLS12_381):
+            fsp = nk.four_step_plan(curve.name, log_sz, "cuda")
+            f, N = fsp.f, fsp.n
+            g = torch.Generator(device="cpu").manual_seed(9)
+            for C, inverse, fused in k9_shapes(fsp):
+                x = random_residues(torch, f, N, g)
+                tw = fsp.twiddles(C, inverse)
+                kw = {}
+                if fused:
+                    kw = dict(entry=random_residues(torch, f, N, g),
+                              exit_=random_residues(torch, f, N, g))
+                layouts = [("column", fsp.column)]
+                if not fused:
+                    layouts = [("contiguous", None)]
+                elif log_sz == LM_LOG_N + 2:
+                    layouts.append(("contiguous", None))
+                for layout, st in layouts:
+                    lk = dict(kw, in_strides=st, out_strides=st)
+                    kern = lambda: nk.ntt_pass(f, x, tw, C, inverse, **lk)          # noqa: E731
+                    plain = lambda: nk.plain_ntt_pass(f, x, tw, C, inverse, **lk)   # noqa: E731
+                    out_k = kern()
+                    torch.cuda.synchronize()
+                    out_p, plain_ms = plain_once(torch, plain, "ntt_pass")
+                    diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
+                    del out_p
+                    shape = (f"{curve.name} {'dit' if inverse else 'dif'} N={N} C={C}"
+                             + (" entry+exit" if fused else "") + f" {layout}")
+                    if diff != 0:
+                        raise AssertionError(f"ntt_pass {shape}: kernel disagrees with its plain version")
+                    ms = device_ms(torch, kern, 20, "ntt_pass")
+                    if log_sz == LM_LOG_N + 2:
+                        plain_ms = cuda_ms(plain, 1)
+                    moved = nbytes(x, tw, out_k, *kw.values())
+                    bound_ms, bound_by = bound(f.W, k9_montmuls(N, C, fused), moved)
+                    old_ms, _ = bound(f.W, k9_montmuls(N, C, fused, skip_ones=False), moved)
+                    log(f"ntt_pass {shape}: exact kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+                        f"bound {bound_ms:.4f} ms ({bound_by}; with the multiplies by one {old_ms:.4f}), "
+                        f"{ms / bound_ms:.2f}x")
+                    passes.append({"shape": shape, "field": f.fp.name, "N": N,
+                                   "main_path": layout != "contiguous" or not fused,
+                                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                   "bound_by": bound_by, "bound_old_ms": old_ms,
+                                   "lazy": nk.lazy_headroom(f)})
+            del x, kw, out_k
     for name in sorted({p["field"] for p in passes}):
-        mine = [p for p in passes if p["main_path"] and p["field"] == name]
-        log(f"ntt_pass {name}, the four main-path passes: {sum(p['ms'] for p in mine):.4f} ms, "
-            f"bound {sum(p['bound_ms'] for p in mine):.4f} ms "
-            f"(PR 2-7 count {sum(p['bound_old_ms'] for p in mine):.4f})")
+        for N in sorted({p["N"] for p in passes}):
+            mine = [p for p in passes if p["main_path"] and p["field"] == name and p["N"] == N]
+            log(f"ntt_pass {name} N={N}, the four main-path passes: "
+                f"{sum(p['ms'] for p in mine):.4f} ms, bound {sum(p['bound_ms'] for p in mine):.4f} ms "
+                f"(with the multiplies by one {sum(p['bound_old_ms'] for p in mine):.4f})")
+    main = [p for p in passes if p["main_path"] and p["field"] == "bn254_fr"
+            and p["N"] == 1 << (LM_LOG_N + 2)]
     return {"name": "ntt_pass", "route": "cuda", "source": NTT_SRC,
             "replaces": REPLACES["ntt_pass"], "kernel": "ntt_pass", "width": 8,
             "max_abs_err": 0,
@@ -1577,6 +1678,158 @@ def batch_check(torch, apt, cc, SquareChain, chain, rounds: int = 2):
         raise AssertionError("the batch proofs differ from the sequential ones")
 
 
+class call_counter:
+    """Calls of ``module.name`` while the context is open; the module's own
+    global is replaced, so the module's calls of it count too."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        self.calls = 0
+        self.orig = orig = getattr(self.module, self.name)
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return orig(*args, **kwargs)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def large_path(torch, apt, curve, log_n, reset_counts):
+    """Phase 10 on one curve: the 2^log_n SquareChain on the test SRS.  The
+    SRS is built first (timed, the device-side path of setups/srs.py, then
+    cached), then the circuit compiled (the SRS read back from that cache);
+    with the counts zeroed just before, a prove + self-verify
+    (CompiledCircuit.verify, four-step quotient) whose proof must have the
+    curve's length, reject a flipped public input, and launch K1, K2, K3
+    (its scan, phase 4 and the pieces' add_window_sums), K8,
+    field_add_sub and K9 (2 per lift and the iNTT).  Then five warm
+    Prover(rng=False) proves of one witness: the first under
+    AP_PROVE_PROFILE=1 (its sub-phases, memory and launches printed), then
+    evicting, not evicting (EVICT_MIN_LOG raised to 99) twice, evicting,
+    unprofiled, so that the eviction's cost reads off one card in one run;
+    all their bytes must be equal and verify.  Returns the prove + self-verify's
+    launches by (kernel, width) and by (kernel, field)."""
+    import io
+
+    from algoplonk_tpu_torch.frontend import witness as witness_mod
+    from algoplonk_tpu_torch.ops import curve_kernels as ck
+    from algoplonk_tpu_torch.ops import field_kernels as fk
+    from algoplonk_tpu_torch.ops import msm as M
+    from algoplonk_tpu_torch.ops import ntt_kernels as nk
+    from algoplonk_tpu_torch.plonk import verify as V
+    from algoplonk_tpu_torch.plonk.marshal import expected_proof_len, marshal_proof
+    from algoplonk_tpu_torch.plonk import prove as prove_mod
+    from algoplonk_tpu_torch.plonk.prove import Prover
+    from algoplonk_tpu_torch.setups import srs as srs_mod
+
+    dev = torch.device("cuda")
+    r = curve.fr.modulus
+    W = M.msm_ctx(curve, dev).ops.W
+    x = 0xA1607 % r
+    SquareChain, chain = square_chain(apt, log_n)
+    y = pow(x, 1 << chain, r)
+    circuit = SquareChain(x=x, y=y)
+    tag = f"[{curve.name} 2^{log_n}]"
+    gib = 2**-30
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srs_mod.test_only_srs(curve, (1 << log_n) + 3, dev)
+    torch.cuda.synchronize()
+    t_srs = time.perf_counter() - t0
+    srs_launches = sum(launch_counts().values())
+    t0 = time.perf_counter()
+    cc = apt.compile(SquareChain, curve, apt.test_only_setup(curve), device=dev)
+    t_compile = time.perf_counter() - t0
+    log(f"{tag} test SRS of {(1 << log_n) + 3} points built on the device and cached: "
+        f"{t_srs:.2f} s, {srs_launches} launches; compile (circuit + SRS read from that cache "
+        f"+ setup): {t_compile:.2f} s; peak device memory {torch.cuda.max_memory_allocated() * gib:.3f} "
+        f"GiB")
+    if cc.pk.n != 1 << log_n:
+        raise AssertionError(f"{tag} domain {cc.pk.n} != 2^{log_n}")
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    in_use = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with msm_timer() as msm_t, call_counter(M, "add_window_sums") as pieces:
+        vp = cc.verify(circuit)
+    t_verify = time.perf_counter() - t0
+    by_width = {k: v for k, v in launches_by_width().items() if v}
+    by_field = {k: v for k, v in fk.LAUNCHES_BY_FIELD.items() if v}
+    blob = vp.marshal_proof()
+    log(f"{tag} prove + self-verify (first, tables built): {t_verify:.2f} s; phases (s): "
+        + json.dumps({k: round(v, 4) for k, v in vp.phase_seconds.items()})
+        + f"; MSMs {msm_t.calls} calls, {msm_t.seconds:.2f} s, add_window_sums {pieces.calls} "
+        f"calls; launches {by_width}, by field {by_field}; memory in use before "
+        f"{in_use * gib:.3f} GiB, peak {torch.cuda.max_memory_allocated() * gib:.3f} GiB")
+    if len(blob) != expected_proof_len(curve, 0):
+        raise AssertionError(f"{tag} proof blob is {len(blob)} bytes")
+    if V.verify(cc.vk, vp.proof, [(y + 1) % r]):
+        raise AssertionError(f"{tag} a flipped public input was accepted")
+    missing = [k for k in ck.MSM_KERNELS if not by_width.get((k, W))]
+    missing += [k for k in fk.KERNELS if not by_field.get((k, curve.fr.name))]
+    missing += [] if by_width.get(("ntt_pass", 8)) == 28 else ["ntt_pass x 28"]
+    missing += [] if pieces.calls else ["add_window_sums"]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {tag} path: {missing}")
+
+    wit = witness_mod.solve(cc.ccs, circuit)
+    runs, seconds = {}, {}
+    evict_min_log = prove_mod.EVICT_MIN_LOG
+    for name, env, min_log in (("evicting, profiled", {"AP_PROVE_PROFILE": "1"}, evict_min_log),
+                               ("evicting", {}, evict_min_log), ("no eviction", {}, 99),
+                               ("no eviction", {}, 99), ("evicting", {}, evict_min_log)):
+        os.environ.update(env)
+        prove_mod.EVICT_MIN_LOG = min_log
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            in_use = torch.cuda.memory_allocated()
+            before = sum(launch_counts().values())
+            prover = Prover(cc.pk, cc.ccs, rng=False)
+            err = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                proof = prover.prove(wit)
+            torch.cuda.synchronize()
+            t_prove = time.perf_counter() - t0
+            launches = sum(launch_counts().values()) - before
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            for k in env:
+                os.environ.pop(k)
+            prove_mod.EVICT_MIN_LOG = evict_min_log
+        t0 = time.perf_counter()
+        ok = V.verify(cc.vk, proof, [y])
+        t_self = time.perf_counter() - t0
+        runs.setdefault(name, set()).add(marshal_proof(curve, proof))
+        seconds.setdefault(name, []).append(t_prove)
+        log(f"{tag} warm Prover(rng=False), {name}: prove {t_prove:.2f} s, self-verify "
+            f"{t_self:.2f} s, {launches} launches; phases (s): "
+            + json.dumps({k: round(v, 4) for k, v in prover.phase_seconds.items()})
+            + f"; memory in use before {in_use * gib:.3f} GiB, peak {peak * gib:.3f} GiB "
+            f"(+{(peak - in_use) * gib:.3f}); verified: {ok}")
+        if err.getvalue():
+            log(f"{tag} AP_PROVE_PROFILE=1:\n" + err.getvalue().rstrip())
+        if not ok:
+            raise AssertionError(f"{tag} the Prover(rng=False) proof failed verification")
+    same = len(set.union(*runs.values())) == 1
+    log(f"{tag} warm prove seconds, evicting then not, not then evicting: "
+        f"{seconds['evicting']} vs {seconds['no eviction']}; "
+        f"proof bytes with and without table eviction equal: {same}")
+    if not same:
+        raise AssertionError(f"{tag} table eviction changed the proof")
+    return by_width, by_field
+
+
 def main() -> int:
     import torch
 
@@ -1627,8 +1880,12 @@ def main() -> int:
     log(_build.build_log.strip())
     kernels = kernel_phase(torch, rng, apt.BN254, (1 << LOG_N) + 3, bound, "",
                            k2_lanes=(commit_widths((1 << LM_LOG_N) + 3)[2],),
-                           scan_E=(commit_windows((1 << LM_LOG_N) + 3)[1],))
-    kernels += kernel_phase(torch, rng, apt.BLS12_381, (1 << BLS_LOG_N) + 3, bound, "[w12]")
+                           scan_E=(commit_windows((1 << LM_LOG_N) + 3)[1],
+                                   commit_windows(M.CHUNK)[1]))
+    kernels += kernel_phase(torch, rng, apt.BLS12_381, (1 << BLS_LOG_N) + 3, bound, "[w12]",
+                            scan_E=(commit_windows(M.CHUNK)[1],))
+    piece_shapes(torch, rng, apt.BN254, bound, kernels, "")
+    piece_shapes(torch, rng, apt.BLS12_381, bound, kernels, "[w12]")
     kernels += field_phase(torch, apt, bound)
     kernels.append(ntt_kernel_phase(torch, bound))
     for k in kernels:   # K5-K7 at both widths carry the width in the name
@@ -1952,6 +2209,20 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on phase 9's sharded paths: {missing}")
 
+    # ---- phase 10: the 2^20 path on both curves, on the test SRS; each
+    # curve's prove + self-verify with the counts zeroed just before it
+    t0 = time.perf_counter()
+    large = {curve.name: large_path(torch, apt, curve, LARGE_LOG_N, reset_counts)
+             for curve in (apt.BN254, bls)}
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        if k["kernel"] in fk.KERNELS:
+            curve = k["field"].rsplit("_", 1)[0]
+            k["phase10_launches"] = large[curve][1].get((k["kernel"], k["field"]), 0)
+        else:
+            curve = "bn254" if k["width"] == 8 else "bls12_381"
+            k["phase10_launches"] = large[curve][0].get((k["kernel"], k["width"]), 0)
+
     unlaunched = [k["name"] for k in kernels if not k.get("launches")]
     if unlaunched:
         raise AssertionError(f"kernels never launched on their path: {unlaunched}")
@@ -1959,7 +2230,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "events_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "T", "depth", "work_adds",
             "rounds_ms", "passes", "shapes", "host_us", "launches_on", "phase8_launches",
-            "phase9_launches")
+            "phase9_launches", "phase10_launches")
     line = [{key: k[key] for key in keys if key in k} for k in kernels]
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -5,9 +5,16 @@ and ``_quotient_lm``.
 The reference's Pallas kernels run in interpret mode on the CPU, as
 tests/test_ntt_pallas.py runs them; the port's K9 runs its plain version.
 Every comparison is exact: decoded ints, position by position (the port's
-row p against the reference's column p), or proof bytes."""
+row p against the reference's column p), or proof bytes.  The reference
+proves once per quotient path (``reference``), with its table eviction
+taken at every size (AP_QUOTIENT_SYNC_MIN_LOG=0; the port's
+``EVICT_MIN_LOG`` set to 0 to match) and under AP_PROVE_PROFILE=1, and the
+port's prove tests share its bytes and its phase names."""
 
+import contextlib
+import io
 import random
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +32,7 @@ from algoplonk_tpu.plonk.prove import Prover as JaxProver
 from algoplonk_tpu_torch.frontend import witness as witness_mod
 from algoplonk_tpu_torch.ops import ntt_kernels as nk
 from algoplonk_tpu_torch.ops.field import field_ops
+from algoplonk_tpu_torch.plonk import prove as prove_mod
 from algoplonk_tpu_torch.plonk import verify as V
 from algoplonk_tpu_torch.plonk.marshal import marshal_proof
 from algoplonk_tpu_torch.plonk.prove import Prover
@@ -33,6 +41,11 @@ from torch_parity import jax_ints, one_commit, one_torch_thread, pythagorean  # 
 BN254 = apt.BN254
 R = BN254.fr.modulus
 G = BN254.coset_shift
+PHASE = re.compile(r"^  prove phase (.+?): \d+\.\d\ds(?:  \[hbm .*\])?$", re.M)
+FOUR_STEP = {"AP_QUOTIENT_LM": "1"}
+BATCH_MAJOR = {"AP_QUOTIENT_LM": "0"}
+EVICT_ALL = {"AP_QUOTIENT_SYNC_MIN_LOG": "0"}   # the reference's threshold
+EVICT_MIN_LOG = prove_mod.EVICT_MIN_LOG           # the port's
 
 
 def rand_ints(seed: int, n: int) -> list[int]:
@@ -100,28 +113,97 @@ def test_scrambled_order_tables_match_reference(fields):
     assert tf.decode(tfs.tile_by_k_mod4(pattern)) == from_lm(jfs.tile_by_k_mod4(pattern))
 
 
-def test_lm_quotient_proof_matches_jax_and_batch_major(monkeypatch):
+def jax_prove(jcc, JPyth, env: dict):
+    """The reference's Prover(rng=False) proof bytes and its profile's phase
+    names under ``env`` and AP_PROVE_PROFILE=1."""
+    err = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stderr(err):
+        for k, v in {**env, "AP_PROVE_PROFILE": "1"}.items():
+            mp.setenv(k, v)
+        prover = JaxProver(jcc.pk, jcc.ccs, rng=False)
+        proof = prover.prove(jax_witness.solve(jcc.ccs, JPyth(a=3, b=4, c=5)))
+    return jax_marshal(ap.BN254, proof), PHASE.findall(err.getvalue())
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference's proves of the Pythagorean circuit: through its
+    _quotient_lm with every table eviction taken, and batch-major."""
+    JPyth = pythagorean(ap)
+    jcc = ap.compile(JPyth, ap.BN254, ap.SetupName.TEST_ONLY_BN254)
+    return {"four_step": jax_prove(jcc, JPyth, {**FOUR_STEP, **EVICT_ALL}),
+            "batch_major": jax_prove(jcc, JPyth, BATCH_MAJOR)}
+
+
+@pytest.fixture(scope="module")
+def port_circuit():
+    TPyth = pythagorean(apt)
+    return apt.compile(TPyth, BN254, apt.SetupName.TEST_ONLY_BN254, device="cpu"), TPyth
+
+
+def port_prove(cc, TPyth, monkeypatch, env: dict, check_path: bool = False,
+               evict_all: bool = False) -> bytes:
+    for k in ("AP_QUOTIENT_LM", "AP_PROVE_PROFILE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(prove_mod, "EVICT_MIN_LOG", 0 if evict_all else EVICT_MIN_LOG)
+    prover = Prover(cc.pk, cc.ccs, rng=False)
+    if check_path:
+        assert prover._use_lm_quotient() == (env["AP_QUOTIENT_LM"] == "1")
+    wit = witness_mod.solve(cc.ccs, TPyth(a=3, b=4, c=5), commitment_solver=prover.bsb_solver)
+    proof = prover.prove(wit)
+    assert V.verify(cc.vk, proof, [3, 4])
+    return marshal_proof(BN254, proof)
+
+
+def test_lm_quotient_proof_matches_jax_and_batch_major(reference, port_circuit, monkeypatch):
     """Prover(rng=False) through _quotient_lm: the JAX prover's
     _quotient_lm proof bytes, and the port's own _quotient proof bytes."""
-    JPyth, TPyth = pythagorean(ap), pythagorean(apt)
-    monkeypatch.setenv("AP_QUOTIENT_LM", "1")
-    jcc = ap.compile(JPyth, ap.BN254, ap.SetupName.TEST_ONLY_BN254)
-    jprover = JaxProver(jcc.pk, jcc.ccs, rng=False)
-    jwit = jax_witness.solve(jcc.ccs, JPyth(a=3, b=4, c=5))
-    want = jax_marshal(ap.BN254, jprover.prove(jwit))
-
-    cc = apt.compile(TPyth, BN254, apt.SetupName.TEST_ONLY_BN254, device="cpu")
-    blobs = {}
+    cc, TPyth = port_circuit
+    want = reference["four_step"][0]
     for flag in ("1", "0"):
-        monkeypatch.setenv("AP_QUOTIENT_LM", flag)
-        prover = Prover(cc.pk, cc.ccs, rng=False)
-        assert prover._use_lm_quotient() == (flag == "1")
-        wit = witness_mod.solve(cc.ccs, TPyth(a=3, b=4, c=5), commitment_solver=prover.bsb_solver)
-        proof = prover.prove(wit)
-        assert V.verify(cc.vk, proof, [3, 4])
-        blobs[flag] = marshal_proof(BN254, proof)
-    assert blobs["1"] == want
-    assert blobs["0"] == want
+        assert port_prove(cc, TPyth, monkeypatch, {"AP_QUOTIENT_LM": flag}, True) == want
+
+
+def test_evicting_quotient_matches_reference_and_no_eviction(reference, port_circuit,
+                                                            monkeypatch):
+    """The four-step prove with every table eviction taken (both drops, in
+    the reference's order) gives the reference's bytes under the same
+    variables, and the port's bytes without eviction."""
+    cc, TPyth = port_circuit
+    drops = []
+    keep = nk.FourStepPlan.drop_tables
+
+    def spy(plan, inverse=None):
+        drops.append(inverse)
+        keep(plan, inverse)
+
+    monkeypatch.setattr(nk.FourStepPlan, "drop_tables", spy)
+    evicting = port_prove(cc, TPyth, monkeypatch, FOUR_STEP, evict_all=True)
+    assert drops == [True, False]
+    kept = port_prove(cc, TPyth, monkeypatch, FOUR_STEP)
+    assert drops == [True, False]   # the default threshold (a coset of 2^21) is not reached
+    assert evicting == reference["four_step"][0]
+    assert kept == evicting
+
+
+@pytest.mark.parametrize("path", ["four_step", "batch_major"])
+def test_profile_phase_names_match_reference(reference, port_circuit, monkeypatch, capfd, path):
+    """Under AP_PROVE_PROFILE=1 the port prints the reference's phase names
+    in its order (the seven r3 sub-phases on the four-step path only), and
+    its bytes stay the reference's; unset, it prints nothing."""
+    cc, TPyth = port_circuit
+    env = FOUR_STEP if path == "four_step" else BATCH_MAJOR
+    want_bytes, want_names = reference[path]
+    assert len([n for n in want_names if n.startswith("r3.")]) == (8 if path == "four_step" else 1)
+    capfd.readouterr()
+    evict_all = path == "four_step"
+    assert port_prove(cc, TPyth, monkeypatch, {**env, "AP_PROVE_PROFILE": "1"},
+                      evict_all=evict_all) == want_bytes
+    assert PHASE.findall(capfd.readouterr().err) == want_names
+    assert port_prove(cc, TPyth, monkeypatch, env, evict_all=evict_all) == want_bytes
+    assert capfd.readouterr().err == ""
 
 
 def test_lm_quotient_path_rule(monkeypatch):

@@ -24,6 +24,7 @@ from algoplonk_tpu_torch.ops.field import field_ops
 from algoplonk_tpu_torch.ops.ntt import ntt_plan
 from algoplonk_tpu_torch.parallel import Mesh, all_gather, prove_batch, sharded_ntt_fn
 from algoplonk_tpu_torch.parallel.msm_sharded import sharded_commit
+from algoplonk_tpu_torch.plonk import prove as prove_mod
 from algoplonk_tpu_torch.plonk import verify as V
 from algoplonk_tpu_torch.plonk.marshal import marshal_proof
 from algoplonk_tpu_torch.plonk.prove import Prover
@@ -133,6 +134,36 @@ def test_prove_batch_on_card(cuda_device, workers):
         wit = witness_mod.solve(cc.ccs, SquareChain(x=x, y=y), commitment_solver=prover.bsb_solver)
         assert marshal_proof(apt.BN254, prover.prove(wit)) == vp.marshal_proof()
         assert int.from_bytes(vp.marshal_public_inputs(), "big") == y
+
+
+def test_prove_batch_evicting_quotient_on_card(cuda_device, monkeypatch):
+    """Two workers on one card share the four-step plan of the round-3
+    quotient while each evicts its tables at every prove (EVICT_MIN_LOG
+    0): every proof is the sequential prover's
+    without eviction, byte for byte."""
+    SquareChain, chain = square_chain(12)
+    r = apt.BN254.fr.modulus
+    cc = apt.compile(SquareChain, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device=cuda_device)
+    xs = [0xA1607 + i for i in range(6)]
+    assignments = [SquareChain(x=x, y=pow(x, 1 << chain, r)) for x in xs]
+    monkeypatch.setenv("AP_QUOTIENT_LM", "1")
+    want = []
+    for a in assignments:
+        prover = Prover(cc.pk, cc.ccs, rng=False)
+        wit = witness_mod.solve(cc.ccs, a, commitment_solver=prover.bsb_solver)
+        want.append(marshal_proof(apt.BN254, prover.prove(wit)))
+    drops = []
+    keep = nk.FourStepPlan.drop_tables
+
+    def spy(plan, inverse=None):
+        drops.append(inverse)
+        keep(plan, inverse)
+
+    monkeypatch.setattr(nk.FourStepPlan, "drop_tables", spy)
+    monkeypatch.setattr(prove_mod, "EVICT_MIN_LOG", 0)
+    vps = prove_batch(cc, assignments, devices=[cuda_device] * 2, rng=False)
+    assert len(drops) == 2 * len(assignments)
+    assert [vp.marshal_proof() for vp in vps] == want
 
 
 def test_prove_batch_default_devices(cuda_device):

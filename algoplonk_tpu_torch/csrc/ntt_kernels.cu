@@ -80,10 +80,35 @@
 // Shared memory: the twiddle table (C * 32 bytes) and S regions of C * 32 +
 // 128 bytes: 80.5 KB at C = 512 and 96.3 KB at C = 1024 (two blocks an SM),
 // 160.5 KB for a column pass at C = 1024, 192.3 KB at C = 2048; granted
-// once with cudaFuncSetAttribute.
+// once with cudaFuncSetAttribute.  C = 4096 would need 384.5 KB, above the
+// 227 KB a Hopper block may have, so kMaxC = 2048.
 //
-// The entry point launches on the given stream, does not synchronise, and
-// returns cudaGetLastError() so the caller sees a refused launch.
+// Above kMaxC (a 2^23 coset's P2 and P2' at C = 4096; P1 and P1' from
+// 2^24 on) the wrapper splits a pass.  A DIF pass runs its stages of
+// halves C/2 .. kMaxC over HBM, one launch of ntt_stage each (below), then
+// K9 at C' = kMaxC on the pieces they leave; a DIT pass runs K9 first, then
+// the HBM stages in rising halves.  Piece t < C / C' of sub-transform s is
+// its elements t C' .. (t + 1) C' - 1, at (i + t C') es + s ss: K9 takes
+// the full pass's strides and the count of pieces (`pieces`) and runs
+// sub-transform s + t (N / C) of length C' there.  In the contiguous layout
+// that is the contiguous layout of C'; in the column layout it is not one
+// stride.  The twiddle table's first C' rows are the C' table.
+//
+// ntt_stage is one radix-2 stage of half h over the N / C sub-transforms,
+// N / 2 butterflies, one a thread, in the sub-transforms' layout (each
+// element's output lies where its input did).  It is bound by bytes: at N =
+// 2^23 it moves 2 x 256 MiB (0.16 ms at 3.35 TB/s) against 2^22 multiplies
+// (about 0.07 ms), so it reads each element once and writes it once,
+// neighbouring threads on neighbouring elements (element-fastest in the
+// contiguous layout, sub-transform-fastest in the column layout).  Its
+// arithmetic is strict, so its output is canonical and K9's input
+// contract holds after it.  The entry multiply is read at the element's
+// position before the butterfly, the exit multiply after it; the first
+// stage of a split DIF pass takes the entry, the last of a DIT pass the
+// exit.
+//
+// The entry points launch on the given stream, do not synchronise, and
+// return cudaGetLastError() so the caller sees a refused launch.
 
 #include <cuda_runtime.h>
 
@@ -113,11 +138,20 @@ struct Pass {
   const uint32_t* entry;   // null: none
   const uint32_t* exit_;   // null: none
   uint32_t* out;
-  int subs;                // N / C sub-transforms
+  int subs;                // N / C sub-transforms of length C
+  int m;                   // N / (C pieces): sub-transforms of the full pass
   int in_es, in_ss, out_es, out_ss;   // positions stay below N <= kMaxN
   int log_c;
   int per_block;           // S, sub-transforms a block takes
 };
+
+// Position of element 0 of sub-transform `sub`: piece t = sub / m of the
+// full pass's sub-transform sub % m, whose element i lies at
+// (i + t C) es + (sub % m) ss.
+__device__ __forceinline__ uint32_t sub_base(int sub, int m, int C, int es, int ss) {
+  const uint32_t t = (uint32_t)sub / (uint32_t)m;
+  return ((uint32_t)sub - t * (uint32_t)m) * (uint32_t)ss + t * (uint32_t)C * (uint32_t)es;
+}
 
 // Sub-transforms a block takes: 256 threads up to C = 512; at C = 1024, four
 // (512 threads) for a column layout, so that an access covers four adjacent
@@ -272,8 +306,9 @@ ntt_pass_kernel(const Pass P, const Consts k) {
   map(0, s, g);
   uint4* region = data + region_base(s, C);
   const int sub = s_block + s;
+  const uint32_t in_base = sub_base(sub, P.m, C, P.in_es, P.in_ss);
   auto in_pos = [&](int e) {   // word offset of the thread's element e
-    return (uint32_t)(elem_x(g, e, T, a, K) * P.in_es + sub * P.in_ss) * kW;
+    return ((uint32_t)(elem_x(g, e, T, a, K) * P.in_es) + in_base) * kW;
   };
   if (sub < P.subs) {
     if (P.entry == nullptr) {
@@ -341,8 +376,9 @@ ntt_pass_kernel(const Pass P, const Consts k) {
   // ---- store: the thread's own last-round elements (no barrier needed),
   // through the exit multiply or, for lazy values, a final subtraction
   if (s_block + s >= P.subs) return;
+  const uint32_t out_base = sub_base(s_block + s, P.m, C, P.out_es, P.out_ss);
   auto out_pos = [&](int e) {
-    return (uint32_t)(elem_x(g, e, T, a, K) * P.out_es + (s_block + s) * P.out_ss) * kW;
+    return ((uint32_t)(elem_x(g, e, T, a, K) * P.out_es) + out_base) * kW;
   };
   if (P.exit_ == nullptr) {
 #pragma unroll
@@ -386,9 +422,78 @@ cudaError_t launch(const Pass& P, const Consts& k, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- ntt_stage
+
+constexpr int kStageThreads = 256;
+
+struct Stage {
+  const uint32_t* x;
+  const uint32_t* tw;
+  const uint32_t* entry;   // null: none
+  const uint32_t* exit_;   // null: none
+  uint32_t* out;
+  uint32_t butterflies;    // N / 2
+  uint32_t m;              // N / C sub-transforms
+  int log_c, log_h;        // C and the stage's half h
+  uint32_t es, ss;         // positions stay below N <= kMaxN
+};
+
+// Butterfly b of the stage: (u, v) at elements i and i + h of sub-transform
+// s, i = 2 h (q / h) + j with j = q mod h, twiddle w_2h^j = tw[h + j].
+template <bool kInverse>
+__global__ void __launch_bounds__(kStageThreads)
+ntt_stage_kernel(const Stage P, const FC fc) {
+  const uint32_t b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= P.butterflies) return;
+  uint32_t s, q;
+  if (P.es == 1) {   // contiguous within a sub-transform: element fastest
+    s = b >> (P.log_c - 1);
+    q = b & ((1u << (P.log_c - 1)) - 1);
+  } else {           // sub-transform fastest
+    q = b / P.m;
+    s = b - q * P.m;
+  }
+  const uint32_t h = 1u << P.log_h;
+  const uint32_t j = q & (h - 1);
+  const uint32_t i = ((q >> P.log_h) << (P.log_h + 1)) | j;
+  const uint32_t pu = (i * P.es + s * P.ss) * kW;
+  const uint32_t pv = pu + h * P.es * kW;
+  uint32_t u[kW], v[kW], w[kW], d[kW];
+  ld_global(u, P.x + pu);
+  ld_global(v, P.x + pv);
+  if (j != 0) ld_global(w, P.tw + (h + j) * kW);
+  if (P.entry != nullptr) {
+    uint32_t eu[kW], ev[kW];
+    ld_global(eu, P.entry + pu);
+    ld_global(ev, P.entry + pv);
+    ap::mont_mul<kW>(u, u, eu, fc);
+    ap::mont_mul<kW>(v, v, ev, fc);
+  }
+  if (kInverse && j != 0) ap::mont_mul<kW>(v, v, w, fc);
+  ap::sub_mod<kW>(d, u, v, fc.p);
+  ap::add_mod<kW>(u, u, v, fc.p);
+  if (!kInverse && j != 0) ap::mont_mul<kW>(v, d, w, fc);
+  else ap::copy<kW>(v, d);
+  if (P.exit_ != nullptr) {
+    uint32_t xu[kW], xv[kW];
+    ld_global(xu, P.exit_ + pu);
+    ld_global(xv, P.exit_ + pv);
+    ap::mont_mul<kW>(u, u, xu, fc);
+    ap::mont_mul<kW>(v, v, xv, fc);
+  }
+  st_global(P.out + pu, u);
+  st_global(P.out + pv, v);
+}
+
 // Every position i es + s ss (i < C, s < M) lies in [0, N)
 bool in_bounds(int64_t N, int C, int64_t M, int64_t es, int64_t ss) {
   return es >= 1 && ss >= 1 && (C - 1) * es + (M - 1) * ss < N;
+}
+
+int log2_of(int64_t v) {
+  int l = 0;
+  while ((int64_t(1) << l) < v) ++l;
+  return l;
 }
 
 }  // namespace
@@ -396,18 +501,23 @@ bool in_bounds(int64_t N, int C, int64_t M, int64_t es, int64_t ss) {
 extern "C" {
 
 // x, entry, exit_, out: [N, W] device words (entry / exit_ may be null);
-// tw: [C, W] device twiddles in heap order; (in_es, in_ss) and (out_es,
-// out_ss): element and sub-transform strides of the input (and entry) and of
-// the output (and exit), in elements, every position below N <= 2^28;
-// lazy: keep values below 2p between stages (needs 4p < R); consts: host
-// pointer to the packed FieldConsts words (p, n0, one) of the scalar field.
+// tw: [C, W] device twiddles in heap order; pieces: the pass is of length
+// C pieces and this launch runs its pieces of length C (1: the whole pass;
+// see the header); (in_es, in_ss) and (out_es, out_ss): element and
+// sub-transform strides of the full pass's input (and entry) and output
+// (and exit), in elements, every position below N <= 2^28; lazy: keep
+// values below 2p between stages (needs 4p < R); consts: host pointer to
+// the packed FieldConsts words (p, n0, one) of the scalar field.
 int ap_ntt_pass(const void* x, const void* tw, const void* entry, const void* exit_, void* out,
-                int64_t N, int C, int inverse, int lazy, int64_t in_es, int64_t in_ss,
-                int64_t out_es, int64_t out_ss, const void* consts, void* stream) {
-  if (C < 2 || C > kMaxC || (C & (C - 1)) != 0 || N % C != 0 || N > kMaxN)
+                int64_t N, int C, int64_t pieces, int inverse, int lazy, int64_t in_es,
+                int64_t in_ss, int64_t out_es, int64_t out_ss, const void* consts,
+                void* stream) {
+  if (C < 2 || C > kMaxC || (C & (C - 1)) != 0 || pieces < 1 || (pieces & (pieces - 1)) != 0
+      || pieces > kMaxN || N % (C * pieces) != 0 || N > kMaxN)
     return (int)cudaErrorInvalidValue;
-  const int64_t M = N / C;
-  if (!in_bounds(N, C, M, in_es, in_ss) || !in_bounds(N, C, M, out_es, out_ss))
+  const int64_t M = N / (C * pieces);
+  if (!in_bounds(N, (int)(C * pieces), M, in_es, in_ss)
+      || !in_bounds(N, (int)(C * pieces), M, out_es, out_ss))
     return (int)cudaErrorInvalidValue;
   Consts k;
   k.fc = *static_cast<const FC*>(consts);
@@ -418,15 +528,15 @@ int ap_ntt_pass(const void* x, const void* tw, const void* entry, const void* ex
     k.p2[i] = (uint32_t)s2;
     carry = s2 >> 32;
   }
-  int log_c = 0;
-  while ((1 << log_c) < C) ++log_c;
+  const int log_c = log2_of(C);
   Pass P;
   P.x = static_cast<const uint32_t*>(x);
   P.tw = static_cast<const uint32_t*>(tw);
   P.entry = static_cast<const uint32_t*>(entry);
   P.exit_ = static_cast<const uint32_t*>(exit_);
   P.out = static_cast<uint32_t*>(out);
-  P.subs = (int)M;
+  P.subs = (int)(N / C);
+  P.m = (int)M;
   P.in_es = (int)in_es;
   P.in_ss = (int)in_ss;
   P.out_es = (int)out_es;
@@ -438,6 +548,38 @@ int ap_ntt_pass(const void* x, const void* tw, const void* entry, const void* ex
   if (inverse) e = lazy ? launch<true, true>(P, k, st) : launch<true, false>(P, k, st);
   else e = lazy ? launch<false, true>(P, k, st) : launch<false, false>(P, k, st);
   return (int)e;
+}
+
+// One radix-2 stage of half h (DIF or DIT by `inverse`) over the N / C
+// length-C sub-transforms of x, element i of sub-transform s at i es + s ss
+// of x, entry, exit_ and out alike; tw: [2h or more, W] heap-order
+// twiddles; entry / exit_ may be null; strict arithmetic, canonical output.
+int ap_ntt_stage(const void* x, const void* tw, const void* entry, const void* exit_, void* out,
+                 int64_t N, int64_t C, int64_t h, int inverse, int64_t es, int64_t ss,
+                 const void* consts, void* stream) {
+  if (C < 2 || (C & (C - 1)) != 0 || h < 1 || (h & (h - 1)) != 0 || 2 * h > C || C > kMaxN
+      || N % C != 0 || N > kMaxN || !in_bounds(N, (int)C, N / C, es, ss))
+    return (int)cudaErrorInvalidValue;
+  Stage P;
+  P.x = static_cast<const uint32_t*>(x);
+  P.tw = static_cast<const uint32_t*>(tw);
+  P.entry = static_cast<const uint32_t*>(entry);
+  P.exit_ = static_cast<const uint32_t*>(exit_);
+  P.out = static_cast<uint32_t*>(out);
+  P.butterflies = (uint32_t)(N / 2);
+  P.m = (uint32_t)(N / C);
+  P.log_c = log2_of(C);
+  P.log_h = log2_of(h);
+  P.es = (uint32_t)es;
+  P.ss = (uint32_t)ss;
+  const FC fc = *static_cast<const FC*>(consts);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = (unsigned)((P.butterflies + kStageThreads - 1) / kStageThreads);
+  if (blocks > 0) {
+    if (inverse) ntt_stage_kernel<true><<<blocks, kStageThreads, 0, st>>>(P, fc);
+    else ntt_stage_kernel<false><<<blocks, kStageThreads, 0, st>>>(P, fc);
+  }
+  return (int)cudaGetLastError();
 }
 
 int ap_ntt_consts_words() { return (int)(sizeof(FC) / sizeof(uint32_t)); }

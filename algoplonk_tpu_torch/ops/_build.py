@@ -109,7 +109,9 @@ def _set_signatures(lib) -> None:
         "ap_field_consts_words": [],
     }
     sigs = {f"{name}_w{w}": argtypes for name, argtypes in per_width.items() for w in WIDTHS}
-    sigs["ap_ntt_pass"] = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i64, i64, i64, i64, vp, vp]
+    sigs["ap_ntt_pass"] = [vp, vp, vp, vp, vp, i64, i32, i64, i32, i32, i64, i64, i64, i64,
+                           vp, vp]
+    sigs["ap_ntt_stage"] = [vp, vp, vp, vp, vp, i64, i64, i64, i32, i64, i64, vp, vp]
     sigs["ap_ntt_consts_words"] = []
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

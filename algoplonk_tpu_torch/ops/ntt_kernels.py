@@ -6,7 +6,9 @@ Counterpart of the reference ``ops/ntt_pallas.py``:
   ==============================  =======================================
   port (here)                     reference (TPU, Pallas)
   ==============================  =======================================
-  ``ntt_pass`` (K9, one launch)   ``_stages_kernel`` :129, ``_pass_kernel`` :245
+  ``ntt_pass`` (K9, one launch    ``_stages_kernel`` :129, ``_pass_kernel`` :245
+  up to ``MAX_C``; above it
+  ``ntt_stage`` launches first)
   ``FourStepPlan``                ``FourStepPlan`` :284
   ``ntt_scr`` / ``intt_scr``      ``ntt_scr_lm`` / ``intt_scr_lm`` :454-463
   ``four_step_plan``              ``four_step_plan`` :524
@@ -30,20 +32,26 @@ where each P is ONE launch of K9 over all log2(C) stages, and no T is a
 copy: P1 and P1' read and write the columns of the [n1, n2] array
 (``FourStepPlan.column`` strides: element i of sub-transform j2 at row
 i n2 + j2), which folds T1 and T2 into P1 and T2' and T1' into P1'; P2 and
-P2' are contiguous.  A transform is two launches, and the entry and exit
-tables of P1 and P1' are kept in the column layout too.  The reference
-splits a pass into several launches at ``_T_SMALL`` to bound Mosaic
-compile time; the port does not.  On a field with 4p < R (BN254's Fr) K9
-keeps values below 2p between stages (``lazy_headroom``).
+P2' are contiguous.  A transform is two launches up to a coset of 2^22,
+and the entry and exit tables of P1 and P1' are kept in the column layout
+too.  The reference splits a pass into several launches at ``_T_SMALL``
+to bound Mosaic compile time; the port splits only where K9 cannot hold a
+sub-transform in shared memory (C > ``MAX_C``): the pass's stages of
+halves C/2 .. MAX_C run over HBM, one ``ntt_stage`` launch each, before
+K9 (DIF) or after it (DIT), so P2 and P2' of a 2^23 coset (C = 4096) are
+two launches each.  On a field with 4p < R (BN254's Fr) K9 keeps values
+below 2p between stages (``lazy_headroom``); ``ntt_stage`` is strict.
 
 Its ``LmOps`` (jitted limbs-major elementwise ops) have no counterpart:
 ``FieldOps`` (ops/field.py) already works on any ``[..., W]``, and on the
 card its ops are the field kernels.
 
-A CPU tensor takes ``plain_ntt_pass``; a CUDA tensor launches K9 or raises,
-with no fallback.  ``LAUNCHES`` counts kernel launches only.  Plans are
-cached per (curve, size, device, gnark-compat mode), and a mode toggle clears
-the cache (``fields/params.py:_clear_derived_caches``).
+A CPU tensor takes ``plain_ntt_pass`` (and ``plain_ntt_stage``, in the
+same composition above ``MAX_C``); a CUDA tensor launches K9 and
+``ntt_stage`` or raises, with no fallback.  ``LAUNCHES`` counts kernel
+launches only.  Plans are cached per (curve, size, device, gnark-compat
+mode), and a mode toggle clears the cache
+(``fields/params.py:_clear_derived_caches``).
 """
 
 from __future__ import annotations
@@ -59,9 +67,12 @@ from .field_kernels import field_consts
 from .field import FieldOps, field_ops
 from .ntt import power_table
 
-KERNELS = ("ntt_pass",)
+KERNELS = ("ntt_pass", "ntt_stage")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
-MAX_C = 2048  # largest sub-transform: n1, n2 <= 2^11 for n <= 2^22
+# K9's largest sub-transform, which it holds whole in shared memory (192 KB
+# of Hopper's 227 KB a block at 2048).  ntt_pass runs a longer pass's stages
+# of halves C/2 .. MAX_C over HBM (ntt_stage) and K9 at MAX_C on the rest.
+MAX_C = 2048
 
 
 def reset_launch_counts() -> None:
@@ -101,47 +112,90 @@ def pass_strides(N: int, C: int, strides) -> tuple[int, int]:
     return es, ss
 
 
-def _logical(t, C: int, strides):
-    """The [N / C, C, W] view of storage t in which [s, i] is element i of
-    sub-transform s."""
+def _pieces(t, C: int, strides, pieces: int):
+    """The [N / (C pieces), pieces, C, W] view of storage t in which
+    [s, q, i] is element q C + i of the length-(C pieces) sub-transform s
+    that ``strides`` places."""
     N, W = t.shape
     es, ss = strides
-    return t.as_strided((N // C, C, W), (ss * W, es * W, 1))
+    return t.as_strided((N // (C * pieces), pieces, C, W), (ss * W, C * es * W, es * W, 1))
+
+
+def _logical(t, C: int, strides, pieces: int = 1):
+    """Storage t -> [N / C, C, W] in logical order: row s pieces + q holds
+    piece q of sub-transform s (a copy where the layout is not already
+    that order)."""
+    return _pieces(t, C, strides, pieces).reshape(-1, C, t.shape[1])
+
+
+def _stored(x, C: int, strides, pieces: int = 1):
+    """x [N, W] in logical order (``_logical``) -> its storage."""
+    if pieces == 1 and strides == (1, C):
+        return x
+    out = torch.empty_like(x)
+    view = _pieces(out, C, strides, pieces)
+    view.copy_(x.reshape(view.shape))
+    return out
+
+
+def _stage(f: FieldOps, x, tw, h: int, inverse: bool):
+    """One radix-2 stage of half h over x [N, W] in logical order: the
+    butterflies of every block of 2h rows."""
+    N, W = x.shape
+    y = x.reshape(N // (2 * h), 2, h, W)
+    u, v = y[:, 0], y[:, 1]
+    w = tw[h : 2 * h]
+    if inverse:
+        t = f.mul(v, w)
+        pair = (f.add(u, t), f.sub(u, t))
+    else:
+        pair = (f.add(u, v), f.mul(f.sub(u, v), w))
+    return torch.stack(pair, dim=1).reshape(N, W)
 
 
 def plain_ntt_pass(f: FieldOps, x, tw, C: int, inverse: bool, entry=None, exit_=None, *,
-                   in_strides=None, out_strides=None):
+                   in_strides=None, out_strides=None, pieces: int = 1):
     """K9's stages in PyTorch: every length-C sub-transform of x [N, W],
     forward DIF (halves C/2 .. 1) or inverse DIT (halves 1 .. C/2), output
     bit-reversed within each sub-transform; ``in_strides`` (x and entry) and
     ``out_strides`` (the output and exit) place the sub-transforms, as
-    ``ntt_pass`` takes them.  It computes on the field's plain twin, so it
-    launches no kernel on any device."""
+    ``ntt_pass`` takes them.  With ``pieces`` > 1 the strides place
+    sub-transforms of length C pieces, and the pass runs on each one's
+    pieces of length C (elements q C .. (q + 1) C - 1), as K9 does for a
+    split pass.  It computes on the field's plain twin, so it launches no
+    kernel on any device."""
     f = f.as_plain()
     N, W = x.shape
-    ins, outs = pass_strides(N, C, in_strides), pass_strides(N, C, out_strides)
-    x = _logical(x, C, ins).reshape(N, W)
+    ins = pass_strides(N, C * pieces, in_strides)
+    outs = pass_strides(N, C * pieces, out_strides)
+    x = _logical(x, C, ins, pieces).reshape(N, W)
     if entry is not None:
-        x = f.mul(x, _logical(entry, C, ins).reshape(N, W))
-    log_c = C.bit_length() - 1
-    halves = [1 << s for s in range(log_c)]
+        x = f.mul(x, _logical(entry, C, ins, pieces).reshape(N, W))
+    halves = [1 << s for s in range(C.bit_length() - 1)]
     for h in halves if inverse else halves[::-1]:
-        y = x.reshape(N // (2 * h), 2, h, W)       # blocks of 2h never cross C
-        u, v = y[:, 0], y[:, 1]
-        w = tw[h : 2 * h]
-        if inverse:
-            t = f.mul(v, w)
-            pair = (f.add(u, t), f.sub(u, t))
-        else:
-            pair = (f.add(u, v), f.mul(f.sub(u, v), w))
-        x = torch.stack(pair, dim=1).reshape(N, W)
+        x = _stage(f, x, tw, h, inverse)            # blocks of 2h never cross C
     if exit_ is not None:
-        x = f.mul(x, _logical(exit_, C, outs).reshape(N, W))
-    if outs == (1, C):
-        return x
-    out = torch.empty_like(x)
-    _logical(out, C, outs).copy_(x.view(N // C, C, W))
-    return out
+        x = f.mul(x, _logical(exit_, C, outs, pieces).reshape(N, W))
+    return _stored(x, C, outs, pieces)
+
+
+def plain_ntt_stage(f: FieldOps, x, tw, C: int, h: int, inverse: bool, entry=None, exit_=None,
+                    *, strides=None):
+    """``ntt_stage`` in PyTorch: the one stage of half h of every length-C
+    sub-transform of x [N, W] placed by ``strides``, DIF or DIT, with the
+    entry multiply before it and the exit multiply after it, read at the
+    elements' positions; the output in the same layout.  On the field's
+    plain twin, so it launches no kernel."""
+    f = f.as_plain()
+    N, W = x.shape
+    st = pass_strides(N, C, strides)
+    x = _logical(x, C, st).reshape(N, W)
+    if entry is not None:
+        x = f.mul(x, _logical(entry, C, st).reshape(N, W))
+    x = _stage(f, x, tw, h, inverse)
+    if exit_ is not None:
+        x = f.mul(x, _logical(exit_, C, st).reshape(N, W))
+    return _stored(x, C, st)
 
 
 # ------------------------------------------------------------------ kernel
@@ -164,42 +218,114 @@ def lazy_headroom(f: FieldOps) -> bool:
     return 4 * f.wf.modulus < f.wf.R
 
 
-def ntt_pass(f: FieldOps, x, tw, C: int, inverse: bool, entry=None, exit_=None, *,
-             in_strides=None, out_strides=None):
-    """K9: all log2(C) stages of the N / C length-C sub-transforms of x
-    [N, W], with an optional entry multiply (on load) and exit multiply (on
-    store), both [N, W].  tw: [C, W] twiddles from ``stage_twiddles``.
-    ``in_strides`` = (es, ss) puts element i of sub-transform s at row
-    i es + s ss of x and entry, ``out_strides`` likewise for the output
-    and exit (default (1, C), contiguous; ``FourStepPlan`` passes columns).
-    Returns a new [N, W] tensor of canonical words."""
-    if x.device.type == "cpu":
-        return plain_ntt_pass(f, x, tw, C, inverse, entry, exit_,
-                              in_strides=in_strides, out_strides=out_strides)
+def _check_length(name: str, N: int, C: int) -> None:
+    if C < 2 or C & (C - 1) or N % C:
+        raise ValueError(f"{name}: bad sub-transform length {C} for N = {N}")
+
+
+def _operands(name: str, x, tw, C: int, entry, exit_) -> None:
+    """A kernel's [N, W] operands and its [C, W] twiddle table: contiguous
+    int32 CUDA tensors, 16-byte aligned."""
     N, W = x.shape
-    if C < 2 or C > MAX_C or C & (C - 1) or N % C:
-        raise ValueError(f"ntt_pass: bad sub-transform length {C} for N = {N}")
-    (ies, iss), (oes, oss) = pass_strides(N, C, in_strides), pass_strides(N, C, out_strides)
     check_tensor("x", x, (N, W))
     check_tensor("tw", tw, (C, W))
     ops = [x, tw]
-    for name, t in (("entry", entry), ("exit", exit_)):
+    for arg, t in (("entry", entry), ("exit", exit_)):
         if t is not None:
-            check_tensor(name, t, (N, W))
+            check_tensor(arg, t, (N, W))
             ops.append(t)
     if any(t.data_ptr() % 16 for t in ops):
-        raise ValueError("ntt_pass: operands must be 16-byte aligned")
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def ntt_pass(f: FieldOps, x, tw, C: int, inverse: bool, entry=None, exit_=None, *,
+             in_strides=None, out_strides=None):
+    """All log2(C) stages of the N / C length-C sub-transforms of x [N, W],
+    with an optional entry multiply (on load) and exit multiply (on store),
+    both [N, W].  tw: [C, W] twiddles from ``stage_twiddles``.
+    ``in_strides`` = (es, ss) puts element i of sub-transform s at row
+    i es + s ss of x and entry, ``out_strides`` likewise for the output
+    and exit (default (1, C), contiguous; ``FourStepPlan`` passes columns).
+    Returns a new [N, W] tensor of canonical words.
+
+    Up to ``MAX_C`` this is one launch of K9.  Above it, a DIF pass first
+    runs its stages of halves C/2 .. MAX_C over HBM, one ``ntt_stage`` each
+    in the input's layout (the first takes the entry multiply), then K9 at
+    MAX_C on the pieces they leave, which writes the output (with the exit
+    multiply); a DIT pass runs K9 first, into the output's layout (with the
+    entry multiply), then the HBM stages in rising halves (the last takes
+    the exit multiply).  tw's first MAX_C rows are the MAX_C table.  On the
+    CPU the same composition runs the plain versions."""
+    N = x.shape[0]
+    _check_length("ntt_pass", N, C)
+    if C <= MAX_C:
+        return _k9(f, x, tw, C, 1, inverse, entry, exit_, in_strides, out_strides)
+    pieces = C // MAX_C
+    halves = [C >> k for k in range(1, pieces.bit_length())]   # C/2 .. MAX_C
+    if not inverse:
+        for k, h in enumerate(halves):
+            x = ntt_stage(f, x, tw, C, h, False, entry if k == 0 else None,
+                          strides=in_strides)
+        return _k9(f, x, tw[:MAX_C], MAX_C, pieces, False, None, exit_, in_strides, out_strides)
+    x = _k9(f, x, tw[:MAX_C], MAX_C, pieces, True, entry, None, in_strides, out_strides)
+    for k, h in enumerate(halves[::-1]):
+        x = ntt_stage(f, x, tw, C, h, True, None, exit_ if k == len(halves) - 1 else None,
+                      strides=out_strides)
+    return x
+
+
+def _k9(f: FieldOps, x, tw, C: int, pieces: int, inverse: bool, entry, exit_,
+        in_strides, out_strides):
+    """K9 over the length-C pieces of the pass of length C pieces that the
+    strides place (``plain_ntt_pass``'s ``pieces``): one launch."""
+    if x.device.type == "cpu":
+        return plain_ntt_pass(f, x, tw, C, inverse, entry, exit_, in_strides=in_strides,
+                              out_strides=out_strides, pieces=pieces)
+    N, W = x.shape
+    _check_length("ntt_pass", N, C * pieces)
+    ins = pass_strides(N, C * pieces, in_strides)
+    outs = pass_strides(N, C * pieces, out_strides)
+    _operands("ntt_pass", x, tw, C, entry, exit_)
     lib = _lib(f)
     out = torch.empty_like(x)
     rc = lib.ap_ntt_pass(
-        x.data_ptr(), tw.data_ptr(),
-        entry.data_ptr() if entry is not None else None,
-        exit_.data_ptr() if exit_ is not None else None,
-        out.data_ptr(), N, C, int(inverse), int(lazy_headroom(f)), ies, iss, oes, oss,
-        field_consts(f.wf), stream_of(x),
+        x.data_ptr(), tw.data_ptr(), _ptr(entry), _ptr(exit_), out.data_ptr(), N, C, pieces,
+        int(inverse), int(lazy_headroom(f)), *ins, *outs, field_consts(f.wf), stream_of(x),
     )
     raise_on(rc, "ntt_pass")
     LAUNCHES["ntt_pass"] += 1
+    return out
+
+
+def ntt_stage(f: FieldOps, x, tw, C: int, h: int, inverse: bool, entry=None, exit_=None, *,
+              strides=None):
+    """One radix-2 stage of half h (DIF (u + v, (u - v) w) or DIT (u + v w,
+    u - v w), w = w_2h^j = tw[h + j]) over the N / C length-C
+    sub-transforms of x [N, W] that ``strides`` places, as the top stages
+    of a pass above ``MAX_C`` run: one launch over HBM, with an optional
+    entry multiply before the butterflies and exit multiply after them,
+    read at the elements' positions.  tw: the pass's [C, W] table.
+    Returns a new [N, W] tensor of canonical words in the same layout."""
+    if x.device.type == "cpu":
+        return plain_ntt_stage(f, x, tw, C, h, inverse, entry, exit_, strides=strides)
+    N, W = x.shape
+    _check_length("ntt_stage", N, C)
+    if h < 1 or h & (h - 1) or 2 * h > C:
+        raise ValueError(f"ntt_stage: bad stage half {h} for C = {C}")
+    es, ss = pass_strides(N, C, strides)
+    _operands("ntt_stage", x, tw, C, entry, exit_)
+    lib = _lib(f)
+    out = torch.empty_like(x)
+    rc = lib.ap_ntt_stage(
+        x.data_ptr(), tw.data_ptr(), _ptr(entry), _ptr(exit_), out.data_ptr(), N, C, h,
+        int(inverse), es, ss, field_consts(f.wf), stream_of(x),
+    )
+    raise_on(rc, "ntt_stage")
+    LAUNCHES["ntt_stage"] += 1
     return out
 
 
@@ -316,7 +442,8 @@ class FourStepPlan:
 
     def ntt_scr(self, coeffs, coset_shift: int | None = None):
         """[n, W] natural coefficients -> [n, W] scrambled evaluations (on
-        the coset shift H when coset_shift is given): two K9 launches."""
+        the coset shift H when coset_shift is given): two K9 launches, and
+        ``ntt_stage`` launches in a pass above ``MAX_C``."""
         self._check(coeffs)
         f, n1, n2, col = self.f, self.n1, self.n2, self.column
         entry = self._coset_table(coset_shift, False) if coset_shift is not None else None
@@ -326,7 +453,8 @@ class FourStepPlan:
 
     def intt_scr(self, evals_scr, coset_shift: int | None = None):
         """[n, W] scrambled evaluations -> [n, W] natural coefficients: two
-        K9 launches."""
+        K9 launches, and ``ntt_stage`` launches in a pass above
+        ``MAX_C``."""
         self._check(evals_scr)
         f, n1, n2, col = self.f, self.n1, self.n2, self.column
         exit_ = self._coset_table(coset_shift, True) if coset_shift is not None else None

@@ -56,7 +56,9 @@ use and caches its test SRS under its own ``.cache/``.
 - ``bytes``: the sha256 of ``Prover(rng=False)``'s proof bytes of
   chip_smoke.py's SquareChain at BN254 2^16 and 2^17 on the test SRS and
   at BLS12-381 2^14 on the Ethereum KZG ceremony: two trees that prove
-  alike print equal digests.
+  alike print equal digests.  Beside each, the tree's kernel launches
+  (its launch counters, by kernel) in a second, warm prove of the same
+  witness.
 
 The measuring code is this file's and the chip_smoke.py beside it, whatever
 ``--root`` names, so that both trees are measured by the same code.
@@ -230,8 +232,13 @@ def bytes_part(torch, apt, record):
         wit = witness_mod.solve(cc.ccs, SquareChain(x=x, y=pow(x, 1 << chain, r)),
                                 commitment_solver=prover.bsb_solver)
         blob = marshal_proof(curve, prover.prove(wit))
+        before = cs.launch_counts()
+        warm = marshal_proof(curve, Prover(cc.pk, cc.ccs, rng=False).prove(wit))
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in cs.launch_counts().items() if v != before[k]}
         record("proof_bytes", curve=curve.name, log_n=log_n, nbytes=len(blob),
-               sha256=hashlib.sha256(blob).hexdigest())
+               sha256=hashlib.sha256(blob).hexdigest(), warm_equal=warm == blob,
+               warm_launches=sum(launches.values()), warm_launches_by_kernel=launches)
         del cc, prover
 
 

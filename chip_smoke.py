@@ -48,12 +48,19 @@ result line):
    at the four pass shapes of the 2^17 path's four-step transforms of 2^19
    (C = 512 and 1024, forward and inverse, with and without the fused entry
    and exit multiplies), in the column layout through which the transforms
-   run the fused passes and contiguous, and at the four of the 2^20 path's
-   transforms of 2^22 (C = 2048, in the transforms' layouts; the plain
-   versions there timed by one call), each timed beside its bound
-   recounted without the multiplies by one and beside the count with them.
-   Every random residue of this phase is drawn from all of [0, p), edge
-   values among them.  Every plain version must launch no kernel (all
+   run the fused passes and contiguous, at the four of the 2^20 path's
+   transforms of 2^22 (C = 2048) and at the four of the 2^21 path's
+   transforms of 2^23 (P2 and P2' at C = 4096: one HBM stage, ntt_stage,
+   and K9 at 2048 on the pieces it leaves), in the transforms' layouts
+   (the plain versions there timed by one call), and at C = 4096 in the
+   column layout with entry and exit at N = 2^14 (K9's second
+   sub-transform stride), each timed beside its bound recounted without
+   the multiplies by one and beside the count with them; and ntt_stage
+   alone on both scalar fields at the 2^21 path's shapes (the half-2048
+   stage of P2 and P2', N = 2^23) and in the column layout at N = 2^14
+   with the entry (DIF) or exit (DIT) multiply, each timed beside its
+   bytes bound.  Every random residue of this phase is drawn from all of
+   [0, p), edge values among them.  Every plain version must launch no kernel (all
    launch counters are read around each plain call);
 2. the 2^16 path, with the launch counts zeroed just before it: compile the
    2^16-constraint SquareChain circuit on BN254 with the test SRS on the
@@ -154,6 +161,14 @@ result line):
    then unprofiled with table eviction, without it (plonk/prove.py's
    EVICT_MIN_LOG raised to 99) twice, and with it; all verify, their
    bytes must be equal, and each one's seconds and peak are printed.
+   BLS12-381's warm proves stop after the profiled one: phase 11 runs
+   its shapes and eviction pairs at twice the size;
+11. the 2^21 path (Dusk's cap on BLS12-381, setups/registry.py) on
+   BLS12-381 on the test SRS (the repo holds Dusk's vk.bin only), as
+   phase 10 runs its curves: the SRS of 2^21 + 3 points, the circuit, a
+   prove + self-verify through the four-step quotient on a 2^23 coset
+   (K9 28 times, ntt_stage 14 times: P2 and P2' at C = 4096), the five
+   warm proves with and without eviction, all equal bytes.
 
 Output: timings on stdout; before the last line the card's name and power
 limit, then a JSON line of per-kernel numbers: launches from the path that
@@ -163,11 +178,13 @@ path, the field kernels from the prove + self-verify of their curve's path,
 or the kernel-test path's for a field that prove does not compute in;
 "phase8_launches" the same kernel's in phase 8, "phase9_launches" in
 phase 9's sharded calls, "phase10_launches" in phase 10's prove +
-self-verify of the kernel's curve, K9's BN254's), the time of
+self-verify of the kernel's curve, K9's BN254's, "phase11_launches" in
+phase 11's; ntt_stage's launches are phase 11's), the time of
 kernel and plain version at phase 1's shapes (K9's ms and plain_ms are the
 sums over BN254's four main-path passes of 2^19, every pass of both fields
-and both sizes itemised under "passes"; K1's, K2's, K4's and the
-field kernels' other shapes are itemised under "shapes"; the field kernels'
+and every size itemised under "passes"; ntt_stage's are the sums over
+BLS12-381's two stages of 2^23; ntt_stage's shapes and K1's, K2's, K4's
+and the field kernels' other shapes are itemised under "shapes"; the field kernels'
 ms is at 2^18 contiguous rows, inputs from HBM; K4's, K5's and K6's ms is
 device time, with CUDA events over back-to-back launches as "events_ms"),
 and the bound at those shapes: the larger of the bytes over HBM bandwidth
@@ -192,6 +209,7 @@ import time
 LOG_N = 16        # the BN254 2^16 path (batch-major quotient)
 LM_LOG_N = 17     # the BN254 2^17 path (four-step quotient, K9)
 LARGE_LOG_N = 20  # phase 10: the JAX package's headline size (BASELINE.json), both curves
+DUSK_LOG_N = 21   # phase 11: Dusk's cap on BLS12-381 (setups/registry.py), a 2^23 coset
 BLS_LOG_N = 14    # the BLS12-381 path: the Ethereum KZG ceremony's cap
 BLS_MSM_POINTS = 1 << 15   # every G1 point of that ceremony
 HOST_PREFIX = 4096         # points checked against the host Pippenger
@@ -212,6 +230,7 @@ SOURCE = {
     "canon": CURVE_SRC, "mixed_add": CURVE_SRC,
     "mixed_add_signed": CURVE_SRC, "jac_add_multi": CURVE_SRC,
     "field_mul": FIELD_SRC, "field_add_sub": FIELD_SRC, "ntt_pass": NTT_SRC,
+    "ntt_stage": NTT_SRC,
 }
 REPLACES = {
     "mixed_add_signed_multi": "algoplonk_tpu/ops/curve_pallas.py:250",
@@ -227,6 +246,9 @@ REPLACES = {
     # no TPU kernel: the reference's add/sub/neg are XLA, which fuses them
     "field_add_sub": "algoplonk_tpu/ops/field.py:237",
     "ntt_pass": "algoplonk_tpu/ops/ntt_pallas.py:129",
+    # the same TPU kernel run on one stage, as _pass_kernel (:245) runs
+    # each stage with 2h > _T_SMALL
+    "ntt_stage": "algoplonk_tpu/ops/ntt_pallas.py:129",
 }
 # Montgomery multiplies per lane of one call of each formula, as the kernels
 # do them (csrc/curve.cuh): the two products by 3b that the plain version
@@ -949,6 +971,24 @@ def k9_montmuls(N: int, C: int, fused: bool, skip_ones: bool = True) -> int:
     return n + (2 * N if fused else 0)
 
 
+def stage_montmuls(N: int, h: int, entry: bool, exit_: bool) -> int:
+    """Montgomery multiplies an ntt_stage launch must do: N/2 butterflies,
+    less the N / 2h whose twiddle is one, plus the entry and exit
+    multiplies."""
+    return N // 2 - N // (2 * h) + N * (int(entry) + int(exit_))
+
+
+def four_step_launches(log_n: int) -> tuple[int, int]:
+    """(K9, ntt_stage) launches of one four-step transform of 2^log_n: two
+    passes (n1 = 2^(log_n // 2), n2 = n / n1), each one K9 launch and one
+    ntt_stage launch a stage of half MAX_C or more."""
+    from algoplonk_tpu_torch.ops import ntt_kernels as nk
+
+    log_max = nk.MAX_C.bit_length() - 1
+    log_n1 = log_n // 2
+    return 2, sum(max(0, lc - log_max) for lc in (log_n1, log_n - log_n1))
+
+
 def plain_once(torch, fn, what):
     """One call of a plain version, which must launch nothing, and its
     milliseconds (CUDA events around that one call): at the 2^20 path's
@@ -967,17 +1007,60 @@ def ntt_kernel_phase(torch, bound):
     (BN254's runs lazy, BLS12-381's strict) at the four pass shapes of the
     2^17 path's four-step transforms of 2^19 (n1 = 512, n2 = 1024), in the
     layouts the transforms run them (P1 and P1' in the column layout), the
-    fused shapes also contiguous, and at the four of the 2^20 path's
-    transforms of 2^22 (n1 = n2 = 2048, the largest C), in the transforms'
-    layouts only, on random residues with edge values.  Each is timed on
-    the device (torch.profiler) beside its bound, recounted without the
-    multiplies by one, and the bound of the count with them.  ms, plain_ms and
-    bound_ms are BN254's sums over its four main-path passes of 2^19."""
+    fused shapes also contiguous, at the four of the 2^20 path's
+    transforms of 2^22 (n1 = n2 = 2048, K9's largest C) and at the four of
+    the 2^21 path's transforms of 2^23 (n1 = 2048, n2 = 4096: P2 and P2'
+    one HBM stage, ntt_stage, and K9 at 2048), in the transforms' layouts
+    only, and at C = 4096 in the column layout with entry and exit at N =
+    2^14 (P1 and P1' from a 2^24 coset on, K9 on pieces of 2048), on random
+    residues with edge values.  Each is timed on the device
+    (torch.profiler; a split pass as K9's time plus its stages') beside
+    its bound, recounted without the multiplies by one, and the bound of
+    the count with them.  ms, plain_ms and bound_ms are BN254's sums over
+    its four main-path passes of 2^19.  Then ``ntt_stage_phase``.  Returns
+    K9's and ntt_stage's entries of the kernels line."""
     import algoplonk_tpu_torch as apt
     from algoplonk_tpu_torch.ops import ntt_kernels as nk
 
     passes = []
-    for log_sz in (LM_LOG_N + 2, LARGE_LOG_N + 2):
+
+    def check_pass(f, N, C, inverse, x, tw, kw, layout, st, main_path, time_plain):
+        lk = dict(kw, in_strides=st, out_strides=st)
+        kern = lambda: nk.ntt_pass(f, x, tw, C, inverse, **lk)          # noqa: E731
+        plain = lambda: nk.plain_ntt_pass(f, x, tw, C, inverse, **lk)   # noqa: E731
+        out_k = kern()
+        torch.cuda.synchronize()
+        out_p, plain_ms = plain_once(torch, plain, "ntt_pass")
+        diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
+        del out_p
+        shape = (f"{f.fp.name} {'dit' if inverse else 'dif'} N={N} C={C}"
+                 + (" entry+exit" if kw else "") + f" {layout}")
+        if diff != 0:
+            raise AssertionError(f"ntt_pass {shape}: kernel disagrees with its plain version")
+        # device time of K9 and of the HBM stages (a stage launch's mean
+        # times the stages of a call), each read from a trace of its own
+        k9_ms = device_ms(torch, kern, 20, "ntt_pass")
+        stages = max(0, (C // nk.MAX_C).bit_length() - 1)
+        stage_ms = device_ms(torch, kern, 20, "ntt_stage") * stages if stages else 0.0
+        ms = k9_ms + stage_ms
+        if time_plain:
+            plain_ms = cuda_ms(plain, 1)
+        moved = nbytes(x, tw, out_k, *kw.values())
+        fused = bool(kw)
+        bound_ms, bound_by = bound(f.W, k9_montmuls(N, C, fused), moved)
+        old_ms, _ = bound(f.W, k9_montmuls(N, C, fused, skip_ones=False), moved)
+        split = f" (K9 {k9_ms:.4f}, ntt_stage {stage_ms:.4f})" if stage_ms else ""
+        log(f"ntt_pass {shape}: exact kernel {ms:.4f} ms{split}, plain {plain_ms:.2f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}; with the multiplies by one {old_ms:.4f}), "
+            f"{ms / bound_ms:.2f}x")
+        entry = {"shape": shape, "field": f.fp.name, "N": N, "main_path": main_path,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "bound_old_ms": old_ms, "lazy": nk.lazy_headroom(f)}
+        if stage_ms:
+            entry.update(k9_ms=k9_ms, stage_ms=stage_ms)
+        passes.append(entry)
+
+    for log_sz in (LM_LOG_N + 2, LARGE_LOG_N + 2, DUSK_LOG_N + 2):
         for curve in (apt.BN254, apt.BLS12_381):
             fsp = nk.four_step_plan(curve.name, log_sz, "cuda")
             f, N = fsp.f, fsp.n
@@ -995,49 +1078,102 @@ def ntt_kernel_phase(torch, bound):
                 elif log_sz == LM_LOG_N + 2:
                     layouts.append(("contiguous", None))
                 for layout, st in layouts:
-                    lk = dict(kw, in_strides=st, out_strides=st)
-                    kern = lambda: nk.ntt_pass(f, x, tw, C, inverse, **lk)          # noqa: E731
-                    plain = lambda: nk.plain_ntt_pass(f, x, tw, C, inverse, **lk)   # noqa: E731
-                    out_k = kern()
-                    torch.cuda.synchronize()
-                    out_p, plain_ms = plain_once(torch, plain, "ntt_pass")
-                    diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
-                    del out_p
-                    shape = (f"{curve.name} {'dit' if inverse else 'dif'} N={N} C={C}"
-                             + (" entry+exit" if fused else "") + f" {layout}")
-                    if diff != 0:
-                        raise AssertionError(f"ntt_pass {shape}: kernel disagrees with its plain version")
-                    ms = device_ms(torch, kern, 20, "ntt_pass")
-                    if log_sz == LM_LOG_N + 2:
-                        plain_ms = cuda_ms(plain, 1)
-                    moved = nbytes(x, tw, out_k, *kw.values())
-                    bound_ms, bound_by = bound(f.W, k9_montmuls(N, C, fused), moved)
-                    old_ms, _ = bound(f.W, k9_montmuls(N, C, fused, skip_ones=False), moved)
-                    log(f"ntt_pass {shape}: exact kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-                        f"bound {bound_ms:.4f} ms ({bound_by}; with the multiplies by one {old_ms:.4f}), "
-                        f"{ms / bound_ms:.2f}x")
-                    passes.append({"shape": shape, "field": f.fp.name, "N": N,
-                                   "main_path": layout != "contiguous" or not fused,
-                                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                   "bound_by": bound_by, "bound_old_ms": old_ms,
-                                   "lazy": nk.lazy_headroom(f)})
-            del x, kw, out_k
+                    check_pass(f, N, C, inverse, x, tw, kw, layout, st,
+                               layout != "contiguous" or not fused, log_sz == LM_LOG_N + 2)
+            del x, kw
+    # C = 4096 in the column layout with entry and exit: P1 and P1' of a
+    # 2^24 coset, at a small N (no prove here runs it)
+    C, N = 2 * nk.MAX_C, 1 << 14
+    for curve in (apt.BN254, apt.BLS12_381):
+        f = nk.four_step_plan(curve.name, 14, "cuda").f
+        g = torch.Generator(device="cpu").manual_seed(10)
+        for inverse in (False, True):
+            x = random_residues(torch, f, N, g)
+            tw = f.encode(nk.stage_twiddles(curve.name, C, inverse))
+            kw = dict(entry=random_residues(torch, f, N, g), exit_=random_residues(torch, f, N, g))
+            check_pass(f, N, C, inverse, x, tw, kw, "column", (N // C, 1), False, True)
     for name in sorted({p["field"] for p in passes}):
         for N in sorted({p["N"] for p in passes}):
             mine = [p for p in passes if p["main_path"] and p["field"] == name and p["N"] == N]
-            log(f"ntt_pass {name} N={N}, the four main-path passes: "
-                f"{sum(p['ms'] for p in mine):.4f} ms, bound {sum(p['bound_ms'] for p in mine):.4f} ms "
-                f"(with the multiplies by one {sum(p['bound_old_ms'] for p in mine):.4f})")
+            if mine:
+                log(f"ntt_pass {name} N={N}, the four main-path passes: "
+                    f"{sum(p['ms'] for p in mine):.4f} ms, bound "
+                    f"{sum(p['bound_ms'] for p in mine):.4f} ms (with the multiplies by one "
+                    f"{sum(p['bound_old_ms'] for p in mine):.4f})")
     main = [p for p in passes if p["main_path"] and p["field"] == "bn254_fr"
             and p["N"] == 1 << (LM_LOG_N + 2)]
-    return {"name": "ntt_pass", "route": "cuda", "source": NTT_SRC,
-            "replaces": REPLACES["ntt_pass"], "kernel": "ntt_pass", "width": 8,
+    k9 = {"name": "ntt_pass", "route": "cuda", "source": NTT_SRC,
+          "replaces": REPLACES["ntt_pass"], "kernel": "ntt_pass", "width": 8,
+          "max_abs_err": 0,
+          "ms": sum(p["ms"] for p in main),
+          "plain_ms": sum(p["plain_ms"] for p in main),
+          "bound_ms": sum(p["bound_ms"] for p in main),
+          "bound_by": "operations" if all(p["bound_by"] == "operations" for p in main) else "bytes",
+          "library_ms": None, "passes": passes}
+    return k9, ntt_stage_phase(torch, bound)
+
+
+def ntt_stage_phase(torch, bound):
+    """ntt_stage against its plain version, word for word, on both scalar
+    fields: the one HBM stage (half 2048) of the 2^21 path's P2 and P2'
+    (contiguous, N = 2^23, C = 4096), and of a C = 4096 column pass at N =
+    2^14, the DIF stage with the entry multiply and the DIT stage with the
+    exit multiply.  Each is timed on the device beside its bound (bytes:
+    x and out, and the twiddle rows it reads; multiplies: the butterflies'
+    less those by one, and the entry or exit).  ms, plain_ms and bound_ms
+    are BLS12-381's sums over its two main-path stages."""
+    import algoplonk_tpu_torch as apt
+    from algoplonk_tpu_torch.ops import ntt_kernels as nk
+
+    shapes = []
+    for curve in (apt.BLS12_381, apt.BN254):
+        fsp = nk.four_step_plan(curve.name, DUSK_LOG_N + 2, "cuda")   # no table but tw
+        g = torch.Generator(device="cpu").manual_seed(13)
+        f, C, h = fsp.f, fsp.n2, nk.MAX_C
+        for N, layout, st in ((fsp.n, "contiguous", None),
+                              (1 << 14, "column", ((1 << 14) // C, 1))):
+            for inverse in (False, True):
+                x = random_residues(torch, f, N, g)
+                tw = fsp.twiddles(C, inverse)
+                kw = {}
+                if layout == "column":   # P1 takes the entry multiply, P1' the exit
+                    kw = {"exit_" if inverse else "entry": random_residues(torch, f, N, g)}
+
+                def kern():
+                    return nk.ntt_stage(f, x, tw, C, h, inverse, **kw, strides=st)
+
+                def plain():
+                    return nk.plain_ntt_stage(f, x, tw, C, h, inverse, **kw, strides=st)
+
+                out_k = kern()
+                torch.cuda.synchronize()
+                out_p, plain_ms = plain_once(torch, plain, "ntt_stage")
+                diff = (out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max().item()
+                del out_p
+                shape = (f"{f.fp.name} {'dit' if inverse else 'dif'} N={N} C={C} h={h}"
+                         + "".join(f" {k.rstrip('_')}" for k in kw) + f" {layout}")
+                if diff != 0:
+                    raise AssertionError(f"ntt_stage {shape}: kernel disagrees with its plain "
+                                         "version")
+                ms = device_ms(torch, kern, 20, "ntt_stage")
+                moved = nbytes(x, tw[h : 2 * h], out_k, *kw.values())
+                muls = stage_montmuls(N, h, "entry" in kw, "exit_" in kw)
+                bound_ms, bound_by = bound(f.W, muls, moved)
+                log(f"ntt_stage {shape}: exact kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+                    f"bound {bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.2f}x")
+                shapes.append({"shape": shape, "field": f.fp.name, "N": N,
+                               "main_path": layout == "contiguous", "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+                del x, kw, out_k
+    main = [p for p in shapes if p["main_path"] and p["field"] == "bls12_381_fr"]
+    return {"name": "ntt_stage", "route": "cuda", "source": NTT_SRC,
+            "replaces": REPLACES["ntt_stage"], "kernel": "ntt_stage", "width": 8,
             "max_abs_err": 0,
             "ms": sum(p["ms"] for p in main),
             "plain_ms": sum(p["plain_ms"] for p in main),
             "bound_ms": sum(p["bound_ms"] for p in main),
             "bound_by": "operations" if all(p["bound_by"] == "operations" for p in main) else "bytes",
-            "library_ms": None, "passes": passes}
+            "library_ms": None, "shapes": shapes}
 
 
 def kernel_test_path(torch, curve, lanes: int = 1024):
@@ -1700,21 +1836,30 @@ class call_counter:
         setattr(self.module, self.name, self.orig)
 
 
-def large_path(torch, apt, curve, log_n, reset_counts):
-    """Phase 10 on one curve: the 2^log_n SquareChain on the test SRS.  The
-    SRS is built first (timed, the device-side path of setups/srs.py, then
-    cached), then the circuit compiled (the SRS read back from that cache);
-    with the counts zeroed just before, a prove + self-verify
-    (CompiledCircuit.verify, four-step quotient) whose proof must have the
-    curve's length, reject a flipped public input, and launch K1, K2, K3
-    (its scan, phase 4 and the pieces' add_window_sums), K8,
-    field_add_sub and K9 (2 per lift and the iNTT).  Then five warm
-    Prover(rng=False) proves of one witness: the first under
-    AP_PROVE_PROFILE=1 (its sub-phases, memory and launches printed), then
-    evicting, not evicting (EVICT_MIN_LOG raised to 99) twice, evicting,
-    unprofiled, so that the eviction's cost reads off one card in one run;
-    all their bytes must be equal and verify.  Returns the prove + self-verify's
-    launches by (kernel, width) and by (kernel, field)."""
+# the warm Prover(rng=False) proves of a large path: (name, environment,
+# EVICT_MIN_LOG, None for the default)
+WARM_RUNS = (("evicting, profiled", {"AP_PROVE_PROFILE": "1"}, None), ("evicting", {}, None),
+             ("no eviction", {}, 99), ("no eviction", {}, 99), ("evicting", {}, None))
+WARM_FIRST = WARM_RUNS[:1]
+
+
+def large_path(torch, apt, curve, log_n, reset_counts, warm=WARM_RUNS):
+    """Phases 10 and 11 on one curve: the 2^log_n SquareChain on the test
+    SRS.  The SRS is built first (timed, the device-side path of
+    setups/srs.py, then cached), then the circuit compiled (the SRS read
+    back from that cache); with the counts zeroed just before, a prove +
+    self-verify (CompiledCircuit.verify, four-step quotient) whose proof
+    must have the curve's length, reject a flipped public input, and
+    launch K1, K2, K3 (its scan, phase 4 and the pieces' add_window_sums),
+    K8, field_add_sub, K9 (2 per lift and the iNTT) and, where the coset's
+    n2 is above K9's MAX_C, ntt_stage (one a transform at 2^23), and no
+    ntt_stage below it.  Then the ``warm`` Prover(rng=False) proves of one
+    witness (by default five: the first under AP_PROVE_PROFILE=1, its
+    sub-phases, memory and launches printed, then evicting, not evicting,
+    EVICT_MIN_LOG raised to 99, twice, evicting, unprofiled, so that the
+    eviction's cost reads off one card in one run); all their bytes must be
+    equal and verify.  Returns the prove + self-verify's launches by
+    (kernel, width) and by (kernel, field)."""
     import io
 
     from algoplonk_tpu_torch.frontend import witness as witness_mod
@@ -1776,7 +1921,11 @@ def large_path(torch, apt, curve, log_n, reset_counts):
         raise AssertionError(f"{tag} a flipped public input was accepted")
     missing = [k for k in ck.MSM_KERNELS if not by_width.get((k, W))]
     missing += [k for k in fk.KERNELS if not by_field.get((k, curve.fr.name))]
-    missing += [] if by_width.get(("ntt_pass", 8)) == 28 else ["ntt_pass x 28"]
+    transforms = 14   # 13 lifts and the 4n iNTT (no BSB22 commitment)
+    k9, stages = (transforms * c for c in four_step_launches(log_n + 2))
+    for name, want in (("ntt_pass", k9), ("ntt_stage", stages)):
+        if by_width.get((name, 8), 0) != want:
+            missing.append(f"{name} x {want} (launched {by_width.get((name, 8), 0)})")
     missing += [] if pieces.calls else ["add_window_sums"]
     if missing:
         raise AssertionError(f"kernels not launched on the {tag} path: {missing}")
@@ -1784,11 +1933,9 @@ def large_path(torch, apt, curve, log_n, reset_counts):
     wit = witness_mod.solve(cc.ccs, circuit)
     runs, seconds = {}, {}
     evict_min_log = prove_mod.EVICT_MIN_LOG
-    for name, env, min_log in (("evicting, profiled", {"AP_PROVE_PROFILE": "1"}, evict_min_log),
-                               ("evicting", {}, evict_min_log), ("no eviction", {}, 99),
-                               ("no eviction", {}, 99), ("evicting", {}, evict_min_log)):
+    for name, env, min_log in warm:
         os.environ.update(env)
-        prove_mod.EVICT_MIN_LOG = min_log
+        prove_mod.EVICT_MIN_LOG = evict_min_log if min_log is None else min_log
         try:
             torch.cuda.reset_peak_memory_stats()
             in_use = torch.cuda.memory_allocated()
@@ -1822,9 +1969,10 @@ def large_path(torch, apt, curve, log_n, reset_counts):
         if not ok:
             raise AssertionError(f"{tag} the Prover(rng=False) proof failed verification")
     same = len(set.union(*runs.values())) == 1
-    log(f"{tag} warm prove seconds, evicting then not, not then evicting: "
-        f"{seconds['evicting']} vs {seconds['no eviction']}; "
-        f"proof bytes with and without table eviction equal: {same}")
+    if "no eviction" in seconds:
+        log(f"{tag} warm prove seconds, evicting then not, not then evicting: "
+            f"{seconds['evicting']} vs {seconds['no eviction']}; "
+            f"proof bytes with and without table eviction equal: {same}")
     if not same:
         raise AssertionError(f"{tag} table eviction changed the proof")
     return by_width, by_field
@@ -1887,7 +2035,7 @@ def main() -> int:
     piece_shapes(torch, rng, apt.BN254, bound, kernels, "")
     piece_shapes(torch, rng, apt.BLS12_381, bound, kernels, "[w12]")
     kernels += field_phase(torch, apt, bound)
-    kernels.append(ntt_kernel_phase(torch, bound))
+    kernels.extend(ntt_kernel_phase(torch, bound))
     for k in kernels:   # K5-K7 at both widths carry the width in the name
         if k["kernel"] in ("mixed_add", "mixed_add_signed", "jac_add_multi") and k["width"] == 8:
             k["name"] += "[w8]"
@@ -2035,14 +2183,16 @@ def main() -> int:
     # ---- phase 5: the 2^17 path (four-step quotient, K9)
     four_step_check(torch)
     cc, SquareChain, x, y, _, launches, _, _ = drive(
-        apt.BN254, apt.SetupName.TEST_ONLY_BN254, LM_LOG_N, (*ck.MSM_KERNELS, *nk.KERNELS))
+        apt.BN254, apt.SetupName.TEST_ONLY_BN254, LM_LOG_N, (*ck.MSM_KERNELS, "ntt_pass"))
     cc17, circuit17 = cc, SquareChain(x=x, y=y)   # phase 9's sharded prove
     lifts = 13 + 2 * len(cc.ccs.commitments)
     if launches["ntt_pass"] != 2 * (lifts + 1):
         raise AssertionError(f"K9 launched {launches['ntt_pass']} times, "
                              f"expected {2 * (lifts + 1)}")
+    if launches["ntt_stage"]:
+        raise AssertionError(f"the 2^{LM_LOG_N} path ran {launches['ntt_stage']} HBM stages")
     for k in kernels:
-        if k["kernel"] in ck.MSM_KERNELS + nk.KERNELS and k["width"] == 8:
+        if k["kernel"] in ck.MSM_KERNELS + ("ntt_pass",) and k["width"] == 8:
             k["launches"] = launches[k["kernel"]]
     k9_before = nk.LAUNCHES["ntt_pass"]
     n_kernels, by_type, busy, wall = profile_device(torch, lambda: cc.verify(SquareChain(x=x, y=y)))
@@ -2204,24 +2354,48 @@ def main() -> int:
                                 if k["kernel"] in fk.KERNELS
                                 else counts.by_width.get((k["kernel"], k["width"]), 0))
     missing = [k["name"] for k in kernels if not k["phase9_launches"] and (
-        k["kernel"] in ck.MSM_KERNELS + nk.KERNELS
+        k["kernel"] in ck.MSM_KERNELS + ("ntt_pass",)
         or (k["kernel"] in fk.KERNELS and k["field"].endswith("_fr")))]
     if missing:
         raise AssertionError(f"kernels not launched on phase 9's sharded paths: {missing}")
 
     # ---- phase 10: the 2^20 path on both curves, on the test SRS; each
-    # curve's prove + self-verify with the counts zeroed just before it
+    # curve's prove + self-verify with the counts zeroed just before it.
+    # BLS12-381's warm proves are cut to one: phase 11 runs its K9 shapes
+    # and the eviction pairs at 2^21
     t0 = time.perf_counter()
-    large = {curve.name: large_path(torch, apt, curve, LARGE_LOG_N, reset_counts)
-             for curve in (apt.BN254, bls)}
+    large = {apt.BN254.name: large_path(torch, apt, apt.BN254, LARGE_LOG_N, reset_counts),
+             bls.name: large_path(torch, apt, bls, LARGE_LOG_N, reset_counts, WARM_FIRST)}
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+    def path_launches(runs, key):
+        """Each kernel's launches in a large path's prove + self-verify: a
+        field kernel's on its field's curve, a curve kernel's on the curve
+        of its width, K9's and ntt_stage's on BN254 where it ran, else on
+        BLS12-381."""
+        for k in kernels:
+            if k["kernel"] in fk.KERNELS:
+                curve = k["field"].rsplit("_", 1)[0]
+                k[key] = runs.get(curve, ({}, {}))[1].get((k["kernel"], k["field"]), 0)
+                continue
+            if k["kernel"] in nk.KERNELS:
+                curve = "bn254" if "bn254" in runs else "bls12_381"
+            else:
+                curve = "bn254" if k["width"] == 8 else "bls12_381"
+            k[key] = runs.get(curve, ({}, {}))[0].get((k["kernel"], k["width"]), 0)
+
+    path_launches(large, "phase10_launches")
+
+    # ---- phase 11: Dusk's cap, the 2^21 path on BLS12-381 on the test SRS
+    # (a 2^23 coset: P2 and P2' one ntt_stage and one K9 launch each), with
+    # the counts zeroed just before its prove + self-verify
+    t0 = time.perf_counter()
+    dusk = {bls.name: large_path(torch, apt, bls, DUSK_LOG_N, reset_counts)}
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    path_launches(dusk, "phase11_launches")
     for k in kernels:
-        if k["kernel"] in fk.KERNELS:
-            curve = k["field"].rsplit("_", 1)[0]
-            k["phase10_launches"] = large[curve][1].get((k["kernel"], k["field"]), 0)
-        else:
-            curve = "bn254" if k["width"] == 8 else "bls12_381"
-            k["phase10_launches"] = large[curve][0].get((k["kernel"], k["width"]), 0)
+        if k["kernel"] == "ntt_stage":   # its main path is phase 11's
+            k["launches"] = k["phase11_launches"]
 
     unlaunched = [k["name"] for k in kernels if not k.get("launches")]
     if unlaunched:
@@ -2230,7 +2404,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "events_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "T", "depth", "work_adds",
             "rounds_ms", "passes", "shapes", "host_us", "launches_on", "phase8_launches",
-            "phase9_launches", "phase10_launches")
+            "phase9_launches", "phase10_launches", "phase11_launches")
     line = [{key: k[key] for key in keys if key in k} for k in kernels]
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

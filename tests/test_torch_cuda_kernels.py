@@ -6,8 +6,8 @@ of the MSM, K4-K7 (csrc/curve_kernels.cu) on both curves (K4 on every
 edge of its ladder, by 16-byte vectors and one lane a thread; K5 and K6
 at every thread count per lane), K8 and
 field_add_sub (csrc/field_kernels.cu) on every field at every operand
-layout the prover gives them, and the NTT pass kernel K9
-(csrc/ntt_kernels.cu); then ``FieldOps`` on the card against the CPU's, the
+layout the prover gives them, and the NTT pass kernel K9 and the HBM stage
+ntt_stage (csrc/ntt_kernels.cu), alone and composed above K9's C; then ``FieldOps`` on the card against the CPU's, the
 device MSM, the four-step transform and small proofs against host
 arithmetic and the CPU.  Every plain version is checked to launch nothing.
 
@@ -745,6 +745,84 @@ def test_k9_refuses_bad_strides(cuda_device):
             nk.ntt_pass(f, x, tw, 8, False, in_strides=bad)
         with pytest.raises(ValueError):
             nk.ntt_pass(f, x, tw, 8, False, out_strides=bad)
+
+
+@pytest.mark.parametrize("tables", ["bare", "entry", "exit", "entry_exit"])
+@pytest.mark.parametrize("layout", ["contiguous", "column"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["dif", "dit"])
+@pytest.mark.parametrize("h", [1, 8, 64])
+@pytest.mark.parametrize("field", sorted(FR_FIELDS))
+def test_ntt_stage(cuda_device, field, h, inverse, layout, tables):
+    """ntt_stage, one radix-2 stage over HBM, word for word against
+    plain_ntt_stage at every kind of half of a C = 128 pass (h = 1: no
+    twiddle but one; h = C / 2: the top stage), both directions, on both
+    scalar fields (strict on each), contiguous and in the column layout,
+    with and without the entry and exit multiplies.  N / C = 45."""
+    C = 128
+    N = 45 * C
+    f = field_ops(FR_FIELDS[field], cuda_device)
+    gen = torch.Generator().manual_seed(h + 2 * inverse)
+    x = random_residues(f, N, gen)
+    tw = f.encode(nk.stage_twiddles(field, C, inverse))
+    kw = {}
+    if "entry" in tables:
+        kw["entry"] = random_residues(f, N, gen)
+    if "exit" in tables:
+        kw["exit_"] = random_residues(f, N, gen)
+    st = (N // C, 1) if layout == "column" else None
+    run_and_compare(
+        "ntt_stage",
+        lambda: nk.ntt_stage(f, x, tw, C, h, inverse, **kw, strides=st),
+        lambda: nk.plain_ntt_stage(f, x, tw, C, h, inverse, **kw, strides=st))
+
+
+def check_split(curve, device, N, C, inverse, fused, layout, seed):
+    """ntt_pass above MAX_C: one ntt_stage launch a stage of half MAX_C or
+    more and one K9 launch, word for word the whole pass's plain version
+    (which launches nothing)."""
+    f = field_ops(FR_FIELDS[curve], device)
+    gen = torch.Generator().manual_seed(seed)
+    x = random_residues(f, N, gen)
+    tw = f.encode(nk.stage_twiddles(curve, C, inverse))
+    kw = dict(entry=random_residues(f, N, gen), exit_=random_residues(f, N, gen)) if fused else {}
+    ins, outs = k9_strides(layout, N, C)
+    before = all_launches()
+    got = nk.ntt_pass(f, x, tw, C, inverse, **kw, in_strides=ins, out_strides=outs)
+    torch.cuda.synchronize()
+    after = all_launches()
+    assert after["ntt_pass"] == before["ntt_pass"] + 1
+    assert after["ntt_stage"] == before["ntt_stage"] + (C // nk.MAX_C).bit_length() - 1
+    want = nk.plain_ntt_pass(f, x, tw, C, inverse, **kw, in_strides=ins, out_strides=outs)
+    torch.cuda.synchronize()
+    assert all_launches() == after, "the plain version launched a kernel"
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", K9_LAYOUTS)
+@pytest.mark.parametrize("fused", [False, True], ids=["bare", "entry_exit"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["dif", "dit"])
+@pytest.mark.parametrize("C,max_c", [(16, 8), (64, 16), (1024, 128), (4096, 1024)])
+@pytest.mark.parametrize("field", sorted(FR_FIELDS))
+def test_split_ntt_pass(monkeypatch, cuda_device, field, C, max_c, inverse, fused, layout):
+    """With MAX_C lowered, a pass splits into one to three HBM stages and
+    K9 on pieces of MAX_C (K9's second sub-transform stride in a column
+    layout), on both fields (K9 lazy on BN254's after the strict stages),
+    both directions, bare and fused, in every layout.  N / C = 45."""
+    monkeypatch.setattr(nk, "MAX_C", max_c)
+    check_split(field, cuda_device, 45 * C, C, inverse, fused, layout, seed=C + inverse)
+
+
+@pytest.mark.parametrize(
+    "N,fused,layout", [(1 << 14, True, "column"), (1 << 23, False, "contiguous")],
+    ids=["column-2^14", "contiguous-2^23"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["dif", "dit"])
+@pytest.mark.parametrize("field", sorted(FR_FIELDS))
+def test_split_ntt_pass_at_4096(cuda_device, field, inverse, N, fused, layout):
+    """C = 4096 at the real MAX_C (one HBM stage, K9 at 2048): in the column
+    layout with entry and exit at N = 2^14 (P1 and P1' from a 2^24 coset
+    on), and contiguous at N = 2^23 (P2 and P2' of a 2^21-row prove)."""
+    assert nk.MAX_C == 2048
+    check_split(field, cuda_device, N, 4096, inverse, fused, layout, seed=N + inverse)
 
 
 def device_kernels(fn, expect: int):

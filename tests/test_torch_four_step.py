@@ -166,6 +166,28 @@ def test_lm_quotient_proof_matches_jax_and_batch_major(reference, port_circuit, 
         assert port_prove(cc, TPyth, monkeypatch, {"AP_QUOTIENT_LM": flag}, True) == want
 
 
+@pytest.mark.parametrize("max_c", [4, 2])
+def test_split_quotient_proof_matches_jax(reference, port_circuit, monkeypatch, max_c):
+    """Prover(rng=False) through _quotient_lm with ops/ntt_kernels.py's
+    MAX_C set low, so that the four-step passes above it run their top
+    stages over HBM (ntt_stage's plain version) before or after K9's: the
+    JAX prover's _quotient_lm bytes.  On the 4n = 32 coset (n1 = 4, n2 = 8)
+    MAX_C = 4 splits P2 and P2', MAX_C = 2 every pass."""
+    cc, TPyth = port_circuit
+    halves = []
+    real = nk.plain_ntt_stage
+
+    def counted(f, x, tw, C, h, *a, **kw):
+        halves.append((C, h))
+        return real(f, x, tw, C, h, *a, **kw)
+
+    monkeypatch.setattr(nk, "plain_ntt_stage", counted)
+    monkeypatch.setattr(nk, "MAX_C", max_c)
+    assert port_prove(cc, TPyth, monkeypatch, FOUR_STEP) == reference["four_step"][0]
+    assert {C for C, _ in halves} == ({8} if max_c == 4 else {4, 8})
+    assert all(h >= max_c for _, h in halves)
+
+
 def test_evicting_quotient_matches_reference_and_no_eviction(reference, port_circuit,
                                                             monkeypatch):
     """The four-step prove with every table eviction taken (both drops, in

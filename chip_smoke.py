@@ -168,7 +168,26 @@ result line):
    phase 10 runs its curves: the SRS of 2^21 + 3 points, the circuit, a
    prove + self-verify through the four-step quotient on a 2^23 coset
    (K9 28 times, ntt_stage 14 times: P2 and P2' at C = 4096), the five
-   warm proves with and without eviction, all equal bytes.
+   warm proves with and without eviction, all equal bytes;
+12. BSB22 at size and the example programs, each part with the counts
+   zeroed just before it: (a) RangeCommit(640) (BASELINE.json config 3:
+   640 secret amounts held to 64 bits by the rangecheck gadget, their sum
+   public, one commitment to them; 124,162 constraints, n = 2^17, BN254's
+   production cap) compiled on the test SRS and proved + self-verified
+   twice through the four-step quotient (seconds, r1..r5, the seconds
+   inside Prover.bsb_solver, launches, peak memory): the first proof must
+   have expected_proof_len(BN254, 1) bytes and one commitment, reject a
+   flipped public input, and launch K1, K2, K3, both field kernels and K9
+   32 times (15 lifts and the iNTT); its emitted logicsig and contract
+   accept it under the AVM mock and reject a flipped public input; two
+   Prover(rng=False) proves through each quotient path give equal bytes;
+   (b) RangeCommit(4) (n = 2^10) with the device MSM forced on the card
+   gives the CPU's proof bytes (host MSM there) through both quotient
+   paths; (c) the four programs of examples_torch/ (basic and Merkle,
+   logicsig and contract) run in this process on the card, each to an
+   accepting verifier.  The Merkle ones run at MERKLE_DEPTH = 12: the same
+   2^14-row domain as their default depth 16, so the same device work,
+   with a host MiMC tree 16 times smaller.
 
 Output: timings on stdout; before the last line the card's name and power
 limit, then a JSON line of per-kernel numbers: launches from the path that
@@ -179,7 +198,8 @@ or the kernel-test path's for a field that prove does not compute in;
 "phase8_launches" the same kernel's in phase 8, "phase9_launches" in
 phase 9's sharded calls, "phase10_launches" in phase 10's prove +
 self-verify of the kernel's curve, K9's BN254's, "phase11_launches" in
-phase 11's; ntt_stage's launches are phase 11's), the time of
+phase 11's, "phase12_launches" in phase 12 (a)'s first prove +
+self-verify; ntt_stage's launches are phase 11's), the time of
 kernel and plain version at phase 1's shapes (K9's ms and plain_ms are the
 sums over BN254's four main-path passes of 2^19, every pass of both fields
 and every size itemised under "passes"; ntt_stage's are the sums over
@@ -218,6 +238,9 @@ KZG_CHECK = 1 << 12        # phase 8: coefficients held to the plain MSM (above 
 G1_NTT_LOG = 11            # phase 8: points of the G1 NTT, 2^G1_NTT_LOG
 MESH_SHARDS = 4            # phase 9: shards of the mesh, all on the one card
 BATCH = 4                  # phase 9: witnesses of a batch, and its workers
+RANGE_N = 640              # phase 12: RangeCommit's amounts, 124,162 constraints: n = 2^17
+RANGE_SMALL = 4            # phase 12: the RangeCommit proved on both devices (n = 2^10)
+MERKLE_DEPTH = 12          # phase 12: the Merkle examples' depth (n = 2^14, as at 16)
 TRACE_PADS = (0.02, 0.25, 1.0, 3.0)   # idle seconds around a traced call, by try
 TRACE_LEAD = 5                        # uncounted launches at the start of a timing trace
 MSM_SRC = "algoplonk_tpu_torch/csrc/msm_kernels.cu"
@@ -392,6 +415,35 @@ def one_commit(apt):
             api.assert_is_equal(t, self.x)
 
     return OneCommit
+
+
+def range_commit(apt, n: int):
+    """BASELINE.json config 3 (a BSB22 circuit through the rangecheck
+    gadget): public ``total`` and secret ``amounts[n]``, each amount held
+    to 64 bits, their sum equal to ``total``, and one commitment to the
+    amounts whose value is used (gnark's rangecheck commits once).
+    tests/test_torch_examples.py holds a copy."""
+    from algoplonk_tpu_torch.frontend.gadgets.rangecheck import assert_bit_length
+
+    class RangeCommit(apt.Circuit):
+        total = apt.PublicInput()
+        amounts = apt.SecretInput(shape=n)
+
+        def define(self, api):
+            for a in self.amounts:
+                assert_bit_length(api, a, 64)
+            api.assert_is_equal(api.add(*self.amounts), self.total)
+            v = api.commit(*self.amounts)
+            api.assert_is_different(v, 0)
+
+    return RangeCommit
+
+
+def range_values(rng, n: int) -> dict:
+    """RangeCommit's assignment: the range's edges 0 and 2^64 - 1, then
+    random uint64s."""
+    amounts = [0, 2**64 - 1] + [rng.randrange(2**64) for _ in range(n - 2)]
+    return dict(total=sum(amounts), amounts=amounts)
 
 
 def pythagorean(apt):
@@ -1426,34 +1478,41 @@ def msm_split(torch, ctx, pts, mont, want, tag):
         raise AssertionError(f"{tag} marked MSM disagrees")
 
 
-class msm_timer:
-    """Host seconds spent in MsmCtx.msm_to_affine_int.  Each call starts
-    after a synchronise and ends in a host fold that waits for the device,
-    so the sum is the MSMs' share of a prove."""
+class method_timer:
+    """Host seconds spent in ``owner.name`` (a method), between a
+    synchronise on entry and one on exit, and its calls."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
 
     def __enter__(self):
         import torch
-        from algoplonk_tpu_torch.ops import msm as M
 
         self.seconds, self.calls = 0.0, 0
-        self.orig = orig = M.MsmCtx.msm_to_affine_int
+        self.orig = orig = getattr(self.owner, self.name)
 
-        def timed(ctx, *args, **kwargs):
+        def timed(obj, *args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
-                return orig(ctx, *args, **kwargs)
+                return orig(obj, *args, **kwargs)
             finally:
+                torch.cuda.synchronize()
                 self.seconds += time.perf_counter() - t0
                 self.calls += 1
 
-        M.MsmCtx.msm_to_affine_int = timed
+        setattr(self.owner, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        from algoplonk_tpu_torch.ops import msm as M
+        setattr(self.owner, self.name, self.orig)
 
-        M.MsmCtx.msm_to_affine_int = self.orig
+
+def msm_timer():
+    """Seconds in MsmCtx.msm_to_affine_int: the MSMs' share of a prove."""
+    from algoplonk_tpu_torch.ops import msm as M
+
+    return method_timer(M.MsmCtx, "msm_to_affine_int")
 
 
 def counts_since(before: dict) -> dict:
@@ -1978,6 +2037,175 @@ def large_path(torch, apt, curve, log_n, reset_counts, warm=WARM_RUNS):
     return by_width, by_field
 
 
+def gpu_equals_cpu(torch, apt, curve, setup, P, assignment, public, cpu_host_msm=False):
+    """Prove ``P`` with every commit on the device MSM, on the GPU and on
+    the CPU, through both quotient paths: all four must agree.  On the CPU
+    the commits run the MSM's plain path, or with ``cpu_host_msm`` the host
+    Pippenger (the plain path's CPU tensors take about 13 s a 1,026-point
+    commit there, host ints well under a second)."""
+    from algoplonk_tpu_torch.frontend import witness as witness_mod
+    from algoplonk_tpu_torch.ops import msm as M
+    from algoplonk_tpu_torch.ops import ntt_kernels as nk
+    from algoplonk_tpu_torch.plonk import verify as V
+    from algoplonk_tpu_torch.plonk.marshal import marshal_proof
+    from algoplonk_tpu_torch.plonk.prove import Prover
+
+    host_max = M.HOST_MSM_MAX
+    k9 = {}
+    try:
+        blobs = {}
+        for d in (torch.device("cuda"), torch.device("cpu")):
+            M.HOST_MSM_MAX = 1 << 62 if d.type == "cpu" and cpu_host_msm else 0
+            small = apt.compile(P, curve, setup, device=d)
+            for lm in ("0", "1"):
+                os.environ["AP_QUOTIENT_LM"] = lm
+                before = nk.LAUNCHES["ntt_pass"]
+                prover = Prover(small.pk, small.ccs, rng=False)
+                wit = witness_mod.solve(small.ccs, P(**assignment),
+                                        commitment_solver=prover.bsb_solver)
+                proof = prover.prove(wit)
+                k9[d.type, lm] = nk.LAUNCHES["ntt_pass"] - before
+                if not V.verify(small.vk, proof, public):
+                    raise AssertionError(f"small proof on {d} failed verification")
+                blobs[d.type, lm] = marshal_proof(curve, proof)
+    finally:
+        M.HOST_MSM_MAX = host_max
+        os.environ.pop("AP_QUOTIENT_LM", None)
+    same = len(set(blobs.values())) == 1
+    log(f"[{curve.name}] {P.__name__}, device MSM: GPU proof == CPU proof, both "
+        f"quotient paths: {same}; K9 launches by (device, path): {k9}")
+    if not same or k9["cuda", "1"] == 0:
+        raise AssertionError(f"small-circuit proofs differ: {sorted(blobs)}")
+
+
+def range_commit_path(torch, apt, rng, reset_counts):
+    """Phase 12 (a): RangeCommit(RANGE_N) on the card, BN254 at n = 2^17
+    (its production cap) with one BSB22 commitment.  Compile (timed), then
+    two prove + self-verifies (CompiledCircuit.verify, blinded, four-step
+    quotient), each with the counts zeroed just before: the seconds, r1..r5,
+    the MSMs' seconds, the seconds inside ``Prover.bsb_solver`` (its size-n
+    iNTT and commit MSM, run from the witness solver), launches and peak
+    memory.  The first must give a proof of expected_proof_len(BN254, 1)
+    bytes with one commitment, reject a flipped public input, call the
+    solver hook once, and launch K1, K2, K3, both field kernels and K9 twice
+    per four-step transform (15 lifts, two of them the commitment's, and
+    the 4n iNTT) and no ntt_stage.  Its emitted logicsig and contract run
+    under the AVM mock on its proof (emit_and_run), and two
+    Prover(rng=False) proves, AP_QUOTIENT_LM=0 then 1, give equal bytes.
+    Returns the first prove + self-verify's launches by (kernel, width) and
+    by (kernel, field)."""
+    from algoplonk_tpu_torch.frontend import witness as witness_mod
+    from algoplonk_tpu_torch.ops import curve_kernels as ck
+    from algoplonk_tpu_torch.ops import field_kernels as fk
+    from algoplonk_tpu_torch.plonk import verify as V
+    from algoplonk_tpu_torch.plonk.marshal import expected_proof_len, marshal_proof
+    from algoplonk_tpu_torch.plonk.prove import Prover
+
+    bn = apt.BN254
+    RangeCommit = range_commit(apt, RANGE_N)
+    values = range_values(rng, RANGE_N)
+    circuit = RangeCommit(**values)
+    tag = f"[bn254 RangeCommit({RANGE_N})]"
+    gib = 2**-30
+
+    reset_counts()
+    t0 = time.perf_counter()
+    cc = apt.compile(RangeCommit, bn, apt.SetupName.TEST_ONLY_BN254, device=torch.device("cuda"))
+    t_compile = time.perf_counter() - t0
+    log(f"{tag} compile (circuit + SRS + setup): {t_compile:.2f} s; "
+        f"{cc.ccs.nb_constraints} constraints, {cc.ccs.nb_public} public, "
+        f"{len(cc.ccs.commitments)} commitment, n = {cc.pk.n}")
+    if cc.pk.n != 1 << LM_LOG_N or len(cc.ccs.commitments) != 1:
+        raise AssertionError(f"{tag} has n = {cc.pk.n}, {len(cc.ccs.commitments)} commitments")
+
+    runs = []
+    for run in ("first", "warm"):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        in_use = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with msm_timer() as msm_t, method_timer(Prover, "bsb_solver") as bsb_t:
+            vp = cc.verify(circuit)
+        t_verify = time.perf_counter() - t0
+        by_width = {k: v for k, v in launches_by_width().items() if v}
+        by_field = {k: v for k, v in fk.LAUNCHES_BY_FIELD.items() if v}
+        log(f"{tag} prove + self-verify ({run}): {t_verify:.2f} s; phases (s): "
+            + json.dumps({k: round(v, 4) for k, v in vp.phase_seconds.items()})
+            + f"; bsb_solver {bsb_t.calls} call(s), {bsb_t.seconds:.3f} s; MSMs {msm_t.calls} "
+            f"calls, {msm_t.seconds:.2f} s; launches {by_width}, by field {by_field}; memory "
+            f"in use before {in_use * gib:.3f} GiB, peak {torch.cuda.max_memory_allocated() * gib:.3f} GiB")
+        runs.append((vp, by_width, by_field, bsb_t.calls))
+    vp, by_width, by_field, bsb_calls = runs[0]
+
+    blob = vp.marshal_proof()
+    if len(blob) != expected_proof_len(bn, 1) or len(vp.proof.bsb_commitments) != 1:
+        raise AssertionError(f"{tag} proof is {len(blob)} bytes with "
+                             f"{len(vp.proof.bsb_commitments)} commitments")
+    if V.verify(cc.vk, vp.proof, [(values["total"] + 1) % bn.fr.modulus]):
+        raise AssertionError(f"{tag} a flipped public input was accepted")
+    missing = [k for k in ck.MSM_KERNELS if not by_width.get((k, 8))]
+    missing += [k for k in fk.KERNELS if not by_field.get((k, bn.fr.name))]
+    k9 = 2 * (13 + 2 * len(cc.ccs.commitments) + 1)
+    if by_width.get(("ntt_pass", 8)) != k9 or by_width.get(("ntt_stage", 8)):
+        missing.append(f"ntt_pass x {k9}, no ntt_stage (launched {by_width.get(('ntt_pass', 8))}, "
+                       f"{by_width.get(('ntt_stage', 8), 0)})")
+    if bsb_calls != 1:
+        missing.append(f"bsb_solver once (called {bsb_calls} times)")
+    if missing:
+        raise AssertionError(f"kernels not launched on the {tag} path: {missing}")
+
+    budgets = emit_and_run(apt, cc, vp, tag)
+    blobs = {}
+    try:
+        for lm in ("0", "1"):
+            os.environ["AP_QUOTIENT_LM"] = lm
+            prover = Prover(cc.pk, cc.ccs, rng=False)
+            wit = witness_mod.solve(cc.ccs, circuit, commitment_solver=prover.bsb_solver)
+            proof = prover.prove(wit)
+            if not V.verify(cc.vk, proof, [values["total"]]):
+                raise AssertionError(f"{tag} the Prover(rng=False) proof failed verification")
+            blobs[lm] = marshal_proof(bn, proof)
+            log(f"{tag} Prover(rng=False), AP_QUOTIENT_LM={lm}: phases (s): "
+                + json.dumps({k: round(v, 4) for k, v in prover.phase_seconds.items()}))
+    finally:
+        os.environ.pop("AP_QUOTIENT_LM", None)
+    log(f"{tag} opcode budgets {budgets}; proof bytes through both quotient paths equal: "
+        f"{blobs['0'] == blobs['1']}")
+    if blobs["0"] != blobs["1"]:
+        raise AssertionError(f"{tag} the two quotient paths give different proofs")
+    return by_width, by_field
+
+
+def examples_path(torch):
+    """Phase 12 (c): the four programs of examples_torch/, in this
+    process, on the card, each into a temporary directory; each must
+    report that its emitted verifier accepted its proof under the AVM mock.
+    The Merkle ones run at MERKLE_DEPTH = 12: the same 2^14-row domain as
+    their default depth 16, so the same device work, with a host MiMC tree
+    16 times smaller (the tree of 2^16 leaves takes about a minute of
+    Python per example)."""
+    import importlib
+    import tempfile
+
+    os.environ["MERKLE_DEPTH"] = str(MERKLE_DEPTH)
+    try:
+        mods = {name: importlib.import_module(f"examples_torch.{name}") for name in (
+            "basic.logicsig_verifier", "basic.smart_contract_verifier",
+            "merkle.logicsig_verifier", "merkle.smart_contract_verifier")}
+    finally:
+        os.environ.pop("MERKLE_DEPTH")
+    for name, mod in mods.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            got = mod.main(outdir=tmp)
+        secs = time.perf_counter() - t0
+        log(f"[examples_torch.{name}] {secs:.2f} s on the card: "
+            + json.dumps({k: (round(v, 3) if isinstance(v, float) else v) for k, v in got.items()
+                          if k not in ("verifier", "proof", "public_inputs")}))
+        if got["accepted"] is not True:
+            raise AssertionError(f"examples_torch.{name}: the emitted verifier rejected its proof")
+
+
 def main() -> int:
     import torch
 
@@ -2139,39 +2367,10 @@ def main() -> int:
     msm_split(torch, ctx, pts, mont, got, f"[bn254] {n}-point commit")
     bn_msm = (pts, mont, got)   # phase 9's sharded MSM
 
-    def gpu_equals_cpu(curve, setup, P, assignment, public):
-        """Prove ``P`` with every commit on the device MSM, on the GPU and
-        on the CPU, through both quotient paths: all four must agree."""
-        host_max = M.HOST_MSM_MAX
-        M.HOST_MSM_MAX = 0
-        k9 = {}
-        try:
-            blobs = {}
-            for d in (dev, torch.device("cpu")):
-                small = apt.compile(P, curve, setup, device=d)
-                for lm in ("0", "1"):
-                    os.environ["AP_QUOTIENT_LM"] = lm
-                    before = nk.LAUNCHES["ntt_pass"]
-                    prover = Prover(small.pk, small.ccs, rng=False)
-                    wit = witness_mod.solve(small.ccs, P(**assignment),
-                                            commitment_solver=prover.bsb_solver)
-                    proof = prover.prove(wit)
-                    k9[d.type, lm] = nk.LAUNCHES["ntt_pass"] - before
-                    if not V.verify(small.vk, proof, public):
-                        raise AssertionError(f"small proof on {d} failed verification")
-                    blobs[d.type, lm] = marshal_proof(curve, proof)
-        finally:
-            M.HOST_MSM_MAX = host_max
-            os.environ.pop("AP_QUOTIENT_LM", None)
-        same = len(set(blobs.values())) == 1
-        log(f"[{curve.name}] small circuit, device MSM: GPU proof == CPU proof, both "
-            f"quotient paths: {same}; K9 launches by (device, path): {k9}")
-        if not same or k9["cuda", "1"] == 0:
-            raise AssertionError(f"small-circuit proofs differ: {sorted(blobs)}")
-
     # ---- phase 4: small circuits
     P = pythagorean(apt)
-    gpu_equals_cpu(apt.BN254, apt.SetupName.TEST_ONLY_BN254, P, dict(a=3, b=4, c=5), [3, 4])
+    gpu_equals_cpu(torch, apt, apt.BN254, apt.SetupName.TEST_ONLY_BN254, P, dict(a=3, b=4, c=5),
+                   [3, 4])
     OneCommit = one_commit(apt)
     t0 = time.perf_counter()
     bcc = apt.compile(OneCommit, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device=dev)
@@ -2232,7 +2431,7 @@ def main() -> int:
         if k["kernel"] in ck.MSM_KERNELS and k["width"] == 12:
             k["launches"] = by_width[k["kernel"], 12]
     quotient_paths(torch, apt, bcc, BSquare(x=bx, y=by), f"[bls12_381 2^{BLS_LOG_N}]")
-    gpu_equals_cpu(bls, ceremony, P, dict(a=3, b=4, c=5), [3, 4])
+    gpu_equals_cpu(torch, apt, bls, ceremony, P, dict(a=3, b=4, c=5), [3, 4])
 
     t0 = time.perf_counter()
     srs = registry.load_trusted(registry.get(ceremony), BLS_MSM_POINTS)
@@ -2397,6 +2596,25 @@ def main() -> int:
         if k["kernel"] == "ntt_stage":   # its main path is phase 11's
             k["launches"] = k["phase11_launches"]
 
+    # ---- phase 12: BASELINE.json config 3 (RangeCommit, one BSB22
+    # commitment) at BN254's 2^17 cap, the same circuit at 2^10 on both
+    # devices, and the programs of examples_torch/ on the card; the counts
+    # zeroed before each part
+    t0 = time.perf_counter()
+    bsb = {apt.BN254.name: range_commit_path(torch, apt, rng, reset_counts)}
+    path_launches(bsb, "phase12_launches")
+    t_range = time.perf_counter() - t0
+    reset_counts()
+    small = range_values(rng, RANGE_SMALL)
+    gpu_equals_cpu(torch, apt, apt.BN254, apt.SetupName.TEST_ONLY_BN254,
+                   range_commit(apt, RANGE_SMALL), small, [small["total"]], cpu_host_msm=True)
+    t_small = time.perf_counter() - t0 - t_range
+    reset_counts()
+    examples_path(torch)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s (RangeCommit({RANGE_N}) {t_range:.1f} s, "
+        f"RangeCommit({RANGE_SMALL}) on both devices {t_small:.1f} s); examples' launches: "
+        f"{dict((k, v) for k, v in launches_by_width().items() if v)}")
+
     unlaunched = [k["name"] for k in kernels if not k.get("launches")]
     if unlaunched:
         raise AssertionError(f"kernels never launched on their path: {unlaunched}")
@@ -2404,7 +2622,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "events_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "T", "depth", "work_adds",
             "rounds_ms", "passes", "shapes", "host_us", "launches_on", "phase8_launches",
-            "phase9_launches", "phase10_launches", "phase11_launches")
+            "phase9_launches", "phase10_launches", "phase11_launches", "phase12_launches")
     line = [{key: k[key] for key in keys if key in k} for k in kernels]
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

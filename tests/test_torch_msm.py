@@ -85,6 +85,23 @@ def test_host_msm(n):
     assert JM.host_msm(JBN254, pts, scalars) == want
 
 
+@pytest.mark.parametrize("n", [40, 300])
+def test_host_msm_repeated_and_cancelling_points(n):
+    """The port's Jacobian sums through their edges: a bucket that adds a
+    point to itself (a doubling), one that adds a point to its negation
+    (the identity), scalars 1, r - 1 and r - 2, and an MSM whose terms all
+    cancel; the same points as the reference's affine host_msm."""
+    rng = random.Random(400 + n)
+    base = sample_points(rng, BN254, 6)
+    pts = [rng.choice(base) for _ in range(n)]
+    scalars = [rng.choice([1, 2, R - 1, R - 2, rng.randrange(R)]) for _ in range(n)]
+    pts[1], scalars[1] = pts[0], scalars[0]
+    pts[3], scalars[3] = hfp.ec_neg(F, pts[2]), scalars[2]
+    assert M.host_msm(BN254, pts, scalars) == JM.host_msm(JBN254, pts, scalars)
+    assert M.host_msm(BN254, pts[2:4], scalars[2:4]) is None
+    assert M.host_msm(BN254, pts[:2], scalars[:2]) == hfp.ec_mul(F, pts[0], 2 * scalars[0] % R)
+
+
 def test_window_sums_match_jax_scan():
     """Per-window sums of the port's scan against the JAX (XLA) scan on the
     same points and digits, n = 13 (not a multiple of the block)."""

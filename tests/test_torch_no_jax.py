@@ -42,6 +42,18 @@ class Block(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, Block())
+
+
+# the loaded modules of jax or the reference, and those loaded from the
+# reference's directory (the script runs from the repo's root)
+def reference_modules():
+    loaded = sorted(m for m in sys.modules if reference_or_jax(m))
+    ref_dir = str(pathlib.Path.cwd().resolve() / "algoplonk_tpu") + "/"
+    from_ref = sorted(
+        name for name, m in list(sys.modules.items())
+        if str(pathlib.Path(getattr(m, "__file__", None) or "/").resolve()).startswith(ref_dir)
+    )
+    return loaded, from_ref
 """
 
 SCRIPT = BLOCK_IMPORTS + r"""
@@ -85,15 +97,31 @@ for curve, setup in ((apt.BN254, apt.SetupName.TEST_ONLY_BN254),
             cc.write_puyapy_verifier(path, apt.ContractType.LOGIC_SIG)
             ns = algopy_mock.exec_verifier_source(open(path).read())
         accepted = algopy_mock.run_logicsig(ns, vp.marshal_proof(), vp.marshal_public_inputs())
-loaded = sorted(m for m in sys.modules if reference_or_jax(m))
-ref_dir = str(pathlib.Path(apt.__file__).resolve().parents[1] / "algoplonk_tpu") + "/"
-from_ref = sorted(
-    name for name, m in list(sys.modules.items())
-    if str(pathlib.Path(getattr(m, "__file__", None) or "/").resolve()).startswith(ref_dir)
-)
+loaded, from_ref = reference_modules()
 print("loaded:", loaded, "from reference:", from_ref, "proof bytes:", sizes,
       "emitted verifier accepts:", accepted)
 sys.exit(1 if loaded or from_ref or sizes != [768, 1056] or accepted is not True else 0)
+"""
+
+
+EXAMPLES_SCRIPT = BLOCK_IMPORTS + r"""
+import os
+import tempfile
+
+import torch
+
+torch.set_num_threads(1)
+os.environ["MERKLE_DEPTH"] = "1"
+for name in ("basic.logicsig_verifier", "basic.smart_contract_verifier",
+             "merkle.logicsig_verifier", "merkle.smart_contract_verifier"):
+    importlib.import_module("examples_torch." + name)
+from examples_torch.basic import logicsig_verifier as basic
+
+with tempfile.TemporaryDirectory() as tmp:
+    accepted = basic.main(device="cpu", outdir=tmp)["accepted"]
+loaded, from_ref = reference_modules()
+print("loaded:", loaded, "from reference:", from_ref, "basic example accepted:", accepted)
+sys.exit(1 if loaded or from_ref or accepted is not True else 0)
 """
 
 
@@ -108,14 +136,28 @@ def test_port_proves_without_jax():
             "emitted verifier accepts: True") in proc.stdout
 
 
+def test_examples_run_without_jax():
+    """Every program of examples_torch/ imports, and the basic logicsig
+    example proves on the CPU to an accepting verifier, in an interpreter
+    where jax and algoplonk_tpu cannot be imported."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", EXAMPLES_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "loaded: [] from reference: [] basic example accepted: True" in proc.stdout
+
+
 def test_port_sources_import_no_jax():
-    """No module of the port, and not chip_smoke.py, names jax or the
-    reference package in an import statement, and the port has no alias
+    """No module of the port or of examples_torch/, and not chip_smoke.py,
+    names jax or the reference package in an import statement, and the port has no alias
     package onto the reference's directory."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|algoplonk_tpu)\b", re.M)
     offenders = [
         str(path.relative_to(REPO))
-        for path in sorted(PORT.rglob("*.py"))
+        for root in (PORT, REPO / "examples_torch")
+        for path in sorted(root.rglob("*.py"))
         if pattern.search(path.read_text())
     ]
     assert offenders == []

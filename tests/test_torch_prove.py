@@ -29,12 +29,12 @@ ASSIGN = dict(a=3, b=4, c=5)
 PUBLIC = [3, 4]
 
 
-def jax_proof_bytes(jcls, assignment):
+def jax_proof_bytes(jcls, assignment, curve=ap.BN254, setup=ap.SetupName.TEST_ONLY_BN254):
     """Compile with the JAX package and prove with blinding off."""
-    cc = ap.compile(jcls, ap.BN254, ap.SetupName.TEST_ONLY_BN254)
+    cc = ap.compile(jcls, curve, setup)
     prover = JaxProver(cc.pk, cc.ccs, rng=False)
     wit = jax_witness.solve(cc.ccs, jcls(**assignment), commitment_solver=prover.bsb_solver)
-    return cc, wit, jax_marshal(ap.BN254, prover.prove(wit))
+    return cc, wit, jax_marshal(curve, prover.prove(wit))
 
 
 def port_proof(pk, ccs, assignment_obj):

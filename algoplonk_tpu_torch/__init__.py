@@ -51,6 +51,7 @@ from .plonk.keys import ProvingKey, VerifyingKey
 from .plonk.prove import Proof, Prover
 from .setups.registry import test_only_setup
 from .setups.srs import SetupName, get as get_setup, run_setup
+from .utils import profiling
 from .verifier.codegen import ContractType, write_python_code
 
 __all__ = [
@@ -81,13 +82,18 @@ class CompiledCircuit:
 
     def verify(self, assignment) -> "VerifiedProof":
         """Prove + self-verify (every proof is checked with the native
-        verifier before export)."""
-        prover = Prover(self.pk, self.ccs)
-        wit = witness_mod.solve(self.ccs, assignment, commitment_solver=prover.bsb_solver)
-        proof = prover.prove(wit)
-        if not verify_mod.verify(self.vk, proof, wit.public_values):
-            raise RuntimeError("proof failed native verification")
-        return VerifiedProof(proof, wit, self.curve, dict(prover.phase_seconds))
+        verifier before export).  One request of ``utils/profiling.py``'s
+        recorder: spans ``verify`` (the root), ``solve``, ``prove`` and
+        ``self_verify``."""
+        with profiling.request("verify"):
+            prover = Prover(self.pk, self.ccs)
+            wit = witness_mod.solve(self.ccs, assignment, commitment_solver=prover.bsb_solver)
+            proof = prover.prove(wit)
+            with profiling.span("self_verify"):
+                ok = verify_mod.verify(self.vk, proof, wit.public_values)
+            if not ok:
+                raise RuntimeError("proof failed native verification")
+            return VerifiedProof(proof, wit, self.curve, dict(prover.phase_seconds))
 
     def write_puyapy_verifier(self, filepath: str, output_type: "ContractType"):
         """Emit PuyaPy verifier source (reference algoplonk.go:63-76)."""

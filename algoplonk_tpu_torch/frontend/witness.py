@@ -17,6 +17,7 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass
 
+from ..utils import profiling
 from .api import CompiledConstraintSystem
 
 
@@ -83,7 +84,13 @@ def _flatten_assignment(ccs: CompiledConstraintSystem, assignment) -> list:
 def solve(ccs: CompiledConstraintSystem, assignment,
           commitment_solver=None) -> Witness:
     """Solve all variables.  commitment_solver(info, values) -> field int is
-    invoked for BSB22 commitment variables (wired up by the prover)."""
+    invoked for BSB22 commitment variables (wired up by the prover).
+    Span: ``solve``."""
+    with profiling.span("solve"):
+        return _solve(ccs, assignment, commitment_solver)
+
+
+def _solve(ccs: CompiledConstraintSystem, assignment, commitment_solver) -> Witness:
     r = ccs.curve.fr.modulus
     values = [0] * ccs.nb_vars
     flat = _flatten_assignment(ccs, assignment)

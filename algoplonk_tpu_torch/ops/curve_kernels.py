@@ -55,7 +55,9 @@ curve's plain twin (``CurveOps.as_plain``), whose field ops are plain torch,
 so a plain version launches no kernel on any device (K4's computes on the words
 alone).  Each wrapper counts
 its kernel launches in ``LAUNCHES`` (by kernel) and ``LAUNCHES_BY_WIDTH``
-(by kernel and W); plain calls are not counted.
+(by kernel and W), under ``utils/profiling.py``'s ``LAUNCH_LOCK``, and
+charges each with its host time from entry to return to the recorder's
+innermost open span while it records; plain calls are not counted.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ import numpy as np
 import torch
 
 from ..fields.words import WordField, ints_to_words
+from ..utils import profiling as _prof
 from ._build import WIDTHS, check_tensor, entry, raise_on, stream_of
 from .curve import CurveOps
 from .field_kernels import field_consts
@@ -82,15 +85,22 @@ LAUNCHES_BY_WIDTH = dict.fromkeys(((k, w) for k in KERNELS for w in WIDTHS), 0)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
-    for key in LAUNCHES_BY_WIDTH:
-        LAUNCHES_BY_WIDTH[key] = 0
+    with _prof.LAUNCH_LOCK:
+        for k in KERNELS:
+            LAUNCHES[k] = 0
+        for key in LAUNCHES_BY_WIDTH:
+            LAUNCHES_BY_WIDTH[key] = 0
 
 
-def _count(name: str, W: int) -> None:
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_WIDTH[name, W] += 1
+def _count(name: str, W: int, t0: int = 0) -> None:
+    """One launch of ``name`` at width W, in the counters and, where the
+    wrapper was entered at ``t0`` (0: nothing records), to the recorder's
+    innermost open span."""
+    with _prof.LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+        LAUNCHES_BY_WIDTH[name, W] += 1
+    if t0:
+        _prof.charge(name, t0)
 
 
 # ------------------------------------------------------------ plain versions
@@ -372,6 +382,7 @@ def mixed_add_signed_multi(ops: CurveOps, acc, pts_flat, packed):
     the low bits, sign in bit SIGN_SHIFT) -> [3, W, B]."""
     if acc.device.type == "cpu":
         return plain_mixed_add_signed_multi(ops, acc, pts_flat, packed)
+    t0 = _prof.entry_ns()
     W = ops.W
     B = acc.shape[-1]
     g = packed.shape[0]
@@ -387,7 +398,7 @@ def mixed_add_signed_multi(ops: CurveOps, acc, pts_flat, packed):
         B, g, pts_flat.shape[0], _consts(ops), stream_of(acc),
     )
     raise_on(rc, "mixed_add_signed_multi")
-    _count("mixed_add_signed_multi", W)
+    _count("mixed_add_signed_multi", W, t0)
     return out
 
 
@@ -397,6 +408,7 @@ def jac_add_multi_scan(ops: CurveOps, acc, qs):
     points), with ``scan_threads(B, g)`` threads per lane."""
     if acc.device.type == "cpu":
         return plain_jac_add_multi_scan(ops, acc, qs)
+    t0 = _prof.entry_ns()
     W = ops.W
     B = acc.shape[-1]
     g = qs.shape[0] // 3
@@ -411,7 +423,7 @@ def jac_add_multi_scan(ops: CurveOps, acc, qs):
         stream_of(acc),
     )
     raise_on(rc, "jac_add_multi_scan")
-    _count("jac_add_multi_scan", W)
+    _count("jac_add_multi_scan", W, t0)
     return out
 
 
@@ -419,6 +431,7 @@ def jac_add(ops: CurveOps, p, q):
     """K3: complete projective add, p, q [3, W, B] -> [3, W, B]."""
     if p.device.type == "cpu":
         return plain_jac_add(ops, p, q)
+    t0 = _prof.entry_ns()
     W = ops.W
     B = p.shape[-1]
     check_tensor("p", p, (3, W, B))
@@ -428,7 +441,7 @@ def jac_add(ops: CurveOps, p, q):
         p.data_ptr(), q.data_ptr(), out.data_ptr(), B, _consts(ops), stream_of(p)
     )
     raise_on(rc, "jac_add")
-    _count("jac_add", W)
+    _count("jac_add", W, t0)
     return out
 
 
@@ -438,6 +451,7 @@ def jac_add_window_scan(ops: CurveOps, x, nwin: int, E: int):
     not read) -> [3, W, nwin * E], in one launch, one block per window."""
     if x.device.type == "cpu":
         return plain_jac_add_window_scan(ops, x, nwin, E)
+    t0 = _prof.entry_ns()
     W = ops.W
     B = x.shape[-1]
     check_tensor("x", x, (3, W, B))
@@ -448,7 +462,7 @@ def jac_add_window_scan(ops: CurveOps, x, nwin: int, E: int):
         x.data_ptr(), out.data_ptr(), B, nwin, E, _consts(ops), stream_of(x)
     )
     raise_on(rc, "jac_add_window_scan")
-    _count("jac_add_window_scan", W)
+    _count("jac_add_window_scan", W, t0)
     return out
 
 
@@ -458,6 +472,7 @@ def window_combine(ops: CurveOps, base, in_block, nw: int, c: int):
     2^(c-1) -> [nw, 3, W] canonical, in one launch, one block per window."""
     if base.device.type == "cpu":
         return plain_window_combine(ops, base, in_block, nw, c)
+    t0 = _prof.entry_ns()
     W = ops.W
     B = base.shape[-1]
     check_tensor("base", base, (3, W, B))
@@ -470,7 +485,7 @@ def window_combine(ops: CurveOps, base, in_block, nw: int, c: int):
         _consts(ops), stream_of(base),
     )
     raise_on(rc, "window_combine")
-    _count("window_combine", W)
+    _count("window_combine", W, t0)
     return out
 
 
@@ -492,6 +507,7 @@ def canon(ops: CurveOps, x):
     a ladder length other than the one it was compiled with."""
     if x.device.type == "cpu":
         return plain_canon(ops, x)
+    t0 = _prof.entry_ns()
     W = ops.W
     R, B = x.shape[0], x.shape[-1]
     check_tensor("x", x, (R, W, B))
@@ -499,7 +515,7 @@ def canon(ops: CurveOps, x):
     steps, ladder = _canon_ladder(ops)
     rc = _kernel("canon", W)(x.data_ptr(), out.data_ptr(), R, B, steps, ladder, stream_of(x))
     raise_on(rc, "canon")
-    _count("canon", W)
+    _count("canon", W, t0)
     return out
 
 
@@ -525,6 +541,7 @@ def mixed_add(ops: CurveOps, acc, pts):
     without the sign)."""
     if acc.device.type == "cpu":
         return plain_mixed_add(ops, acc, pts)
+    t0 = _prof.entry_ns()
     W = ops.W
     B = acc.shape[-1]
     Tm = mixed_threads(W)
@@ -535,7 +552,7 @@ def mixed_add(ops: CurveOps, acc, pts):
         acc.data_ptr(), pts.data_ptr(), out.data_ptr(), B, Tm, _consts(ops), stream_of(acc)
     )
     raise_on(rc, "mixed_add")
-    _count("mixed_add", W)
+    _count("mixed_add", W, t0)
     return out
 
 
@@ -545,6 +562,7 @@ def mixed_add_signed(ops: CurveOps, acc, pts, neg):
     threads per lane."""
     if acc.device.type == "cpu":
         return plain_mixed_add_signed(ops, acc, pts, neg)
+    t0 = _prof.entry_ns()
     W = ops.W
     B = acc.shape[-1]
     Tm = mixed_threads(W)
@@ -557,7 +575,7 @@ def mixed_add_signed(ops: CurveOps, acc, pts, neg):
         _consts(ops), stream_of(acc),
     )
     raise_on(rc, "mixed_add_signed")
-    _count("mixed_add_signed", W)
+    _count("mixed_add_signed", W, t0)
     return out
 
 
@@ -567,6 +585,7 @@ def jac_add_multi(ops: CurveOps, acc, qs):
     same T), with ``multi_threads(B, g)`` threads per lane."""
     if acc.device.type == "cpu":
         return plain_jac_add_multi(ops, acc, qs)
+    t0 = _prof.entry_ns()
     W = ops.W
     B = acc.shape[-1]
     g = qs.shape[0] // 3
@@ -581,5 +600,5 @@ def jac_add_multi(ops: CurveOps, acc, qs):
         stream_of(acc),
     )
     raise_on(rc, "jac_add_multi")
-    _count("jac_add_multi", W)
+    _count("jac_add_multi", W, t0)
     return out

@@ -28,8 +28,10 @@ Most calls are small (the blocked scans of ops/poly.py multiply 256 rows or
 fewer per step), so the wrapper is kept lean: ctypes signatures set once,
 the constants packed once per field, and no checks beyond device, dtype,
 word layout and alignment.  Launches are counted in ``LAUNCHES`` (by
-kernel), ``LAUNCHES_BY_WIDTH`` and ``LAUNCHES_BY_FIELD``; plain calls are
-not counted.
+kernel), ``LAUNCHES_BY_WIDTH`` and ``LAUNCHES_BY_FIELD``, under
+``utils/profiling.py``'s ``LAUNCH_LOCK`` (exact under threads), and
+charged with the wrapper's host time to the recorder's innermost open span
+while it records; plain calls are not counted.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from ..fields.words import WordField, ints_to_words
+from ..utils import profiling as _prof
 from ._build import WIDTHS, entry, raise_on, stream_of
 from .field import FieldOps, plain_add, plain_mul, plain_neg, plain_sub
 
@@ -56,12 +59,26 @@ ALIGN = 16                      # bytes: rows are read as 16-byte vectors
 
 def reset_launch_counts() -> None:
     global COPIES
-    for k in KERNELS:
-        LAUNCHES[k] = 0
-    for key in LAUNCHES_BY_WIDTH:
-        LAUNCHES_BY_WIDTH[key] = 0
-    LAUNCHES_BY_FIELD.clear()
-    COPIES = 0
+    with _prof.LAUNCH_LOCK:
+        for k in KERNELS:
+            LAUNCHES[k] = 0
+        for key in LAUNCHES_BY_WIDTH:
+            LAUNCHES_BY_WIDTH[key] = 0
+        LAUNCHES_BY_FIELD.clear()
+        COPIES = 0
+
+
+def _count(name: str, W: int, field: str, t0: int = 0) -> None:
+    """One launch of ``name`` at width W on ``field``, in the counters and,
+    where the wrapper was entered at ``t0`` (0: nothing records), to the
+    recorder's innermost open span."""
+    with _prof.LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+        LAUNCHES_BY_WIDTH[name, W] += 1
+        key = (name, field)
+        LAUNCHES_BY_FIELD[key] = LAUNCHES_BY_FIELD.get(key, 0) + 1
+    if t0:
+        _prof.charge(name, t0)
 
 
 _CONSTS: dict = {}
@@ -207,6 +224,7 @@ def _launch(name: str, f: FieldOps, xs, op=None):
     """Launch ``name`` on the operands ``xs`` (one or two [..., W] int32
     CUDA tensors) -> a new contiguous tensor of their broadcast shape."""
     global COPIES
+    t0 = _prof.entry_ns()
     W = f.W
     for x in xs:
         if not x.is_cuda:
@@ -218,7 +236,9 @@ def _launch(name: str, f: FieldOps, xs, op=None):
     if len(xs) == 2 and xs[0].device != xs[1].device:
         raise ValueError(f"{name}: operands on {xs[0].device} and {xs[1].device}")
     xs, shape, n0, n1, strides, copies = layout(xs)
-    COPIES += copies
+    if copies:
+        with _prof.LAUNCH_LOCK:
+            COPIES += copies
     out = torch.empty(shape, dtype=torch.int32, device=xs[0].device)
     if n0 * n1 == 0:
         return out
@@ -232,10 +252,7 @@ def _launch(name: str, f: FieldOps, xs, op=None):
         args += (op,)
     rc = _entry(name, W)(*args, field_consts(f.wf), stream_of(out))
     raise_on(rc, name)
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_WIDTH[name, W] += 1
-    key = (name, f.fp.name)
-    LAUNCHES_BY_FIELD[key] = LAUNCHES_BY_FIELD.get(key, 0) + 1
+    _count(name, W, f.fp.name, t0)
     return out
 
 

@@ -35,6 +35,7 @@ import torch
 
 from ..fields.params import CurveParams
 from ..fields.words import mont_words_to_ints
+from ..utils import profiling
 from . import curve_kernels as ck
 from .curve import CurveOps, curve_ops
 from .curve_kernels import (
@@ -420,24 +421,27 @@ class MsmCtx:
 
     def _host_fold(self, window_sums, c: int = WINDOW_BITS) -> tuple | None:
         """[nw, 3, W] Montgomery projective window sums -> host affine int
-        tuple (or None), Horner over the windows on host ints."""
+        tuple (or None), Horner over the windows on host ints.  Spans:
+        ``msm.wait``, the read back, which waits for the card, and
+        ``msm.fold``, the host ints."""
         from ..host import fp as hfp
 
         p = self.curve.fp.modulus
         nw = window_sums.shape[0]
-        coords = mont_words_to_ints(
-            window_sums.reshape(nw * 3, self.ops.W).cpu().numpy(), self.ops.wf
-        )
-        F = hfp.GF(p)
-        acc = None
-        for w in range(nw - 1, -1, -1):
-            X, Y, Z = coords[3 * w], coords[3 * w + 1], coords[3 * w + 2]
-            if acc is not None:
-                for _ in range(c):
-                    acc = hfp.ec_double(F, acc)
-            if Z != 0:
-                zi = pow(Z, -1, p)
-                acc = hfp.ec_add(F, acc, (X * zi % p, Y * zi % p))
+        with profiling.span("msm.wait"):
+            words = window_sums.reshape(nw * 3, self.ops.W).cpu()
+        with profiling.span("msm.fold"):
+            coords = mont_words_to_ints(words.numpy(), self.ops.wf)
+            F = hfp.GF(p)
+            acc = None
+            for w in range(nw - 1, -1, -1):
+                X, Y, Z = coords[3 * w], coords[3 * w + 1], coords[3 * w + 2]
+                if acc is not None:
+                    for _ in range(c):
+                        acc = hfp.ec_double(F, acc)
+                if Z != 0:
+                    zi = pow(Z, -1, p)
+                    acc = hfp.ec_add(F, acc, (X * zi % p, Y * zi % p))
         return acc
 
     def msm_to_affine_int(self, points_affine, scalars, kind: str = "auto",
@@ -448,8 +452,11 @@ class MsmCtx:
         scalars, by ``kind``: 'ints' (canonical Python ints), 'mont'
         ([N, W] Montgomery words, the prover's path), 'digits' ([nw, N]
         signed window digits) or 'auto'.  ``mark`` is window_sums_scan's,
-        with 'digits' and 'host fold' besides."""
-        mark = mark or _no_mark
+        with 'digits' and 'host fold' besides.  Span: ``msm``."""
+        with profiling.span("msm"):
+            return self._msm(points_affine, scalars, kind, window_bits, mark or _no_mark)
+
+    def _msm(self, points_affine, scalars, kind, window_bits, mark):
         n = points_affine.shape[0]
         if kind == "auto":
             if isinstance(scalars, (list, tuple)):

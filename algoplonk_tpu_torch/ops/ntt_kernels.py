@@ -49,7 +49,9 @@ card its ops are the field kernels.
 A CPU tensor takes ``plain_ntt_pass`` (and ``plain_ntt_stage``, in the
 same composition above ``MAX_C``); a CUDA tensor launches K9 and
 ``ntt_stage`` or raises, with no fallback.  ``LAUNCHES`` counts kernel
-launches only.  Plans are cached per (curve, size, device, gnark-compat
+launches only, under ``utils/profiling.py``'s ``LAUNCH_LOCK``, and each
+launch is charged with its wrapper's host time to the recorder's innermost
+open span while it records.  Plans are cached per (curve, size, device, gnark-compat
 mode), and a mode toggle clears the cache
 (``fields/params.py:_clear_derived_caches``).
 """
@@ -62,6 +64,7 @@ import numpy as np
 import torch
 
 from ..fields.params import CURVES, domain_generator, gnark_compat_enabled
+from ..utils import profiling as _prof
 from ._build import check_tensor, raise_on, settle, stream_of
 from .field_kernels import field_consts
 from .field import FieldOps, field_ops
@@ -76,8 +79,19 @@ MAX_C = 2048
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
+    with _prof.LAUNCH_LOCK:
+        for k in KERNELS:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str, t0: int = 0) -> None:
+    """One launch of ``name``, in ``LAUNCHES`` and, where the wrapper was
+    entered at ``t0`` (0: nothing records), to the recorder's innermost
+    open span."""
+    with _prof.LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+    if t0:
+        _prof.charge(name, t0)
 
 
 def _brev(x: int, bits: int) -> int:
@@ -285,6 +299,7 @@ def _k9(f: FieldOps, x, tw, C: int, pieces: int, inverse: bool, entry, exit_,
     if x.device.type == "cpu":
         return plain_ntt_pass(f, x, tw, C, inverse, entry, exit_, in_strides=in_strides,
                               out_strides=out_strides, pieces=pieces)
+    t0 = _prof.entry_ns()
     N, W = x.shape
     _check_length("ntt_pass", N, C * pieces)
     ins = pass_strides(N, C * pieces, in_strides)
@@ -297,7 +312,7 @@ def _k9(f: FieldOps, x, tw, C: int, pieces: int, inverse: bool, entry, exit_,
         int(inverse), int(lazy_headroom(f)), *ins, *outs, field_consts(f.wf), stream_of(x),
     )
     raise_on(rc, "ntt_pass")
-    LAUNCHES["ntt_pass"] += 1
+    _count("ntt_pass", t0)
     return out
 
 
@@ -312,6 +327,7 @@ def ntt_stage(f: FieldOps, x, tw, C: int, h: int, inverse: bool, entry=None, exi
     Returns a new [N, W] tensor of canonical words in the same layout."""
     if x.device.type == "cpu":
         return plain_ntt_stage(f, x, tw, C, h, inverse, entry, exit_, strides=strides)
+    t0 = _prof.entry_ns()
     N, W = x.shape
     _check_length("ntt_stage", N, C)
     if h < 1 or h & (h - 1) or 2 * h > C:
@@ -325,7 +341,7 @@ def ntt_stage(f: FieldOps, x, tw, C: int, h: int, inverse: bool, entry=None, exi
         int(inverse), es, ss, field_consts(f.wf), stream_of(x),
     )
     raise_on(rc, "ntt_stage")
-    LAUNCHES["ntt_stage"] += 1
+    _count("ntt_stage", t0)
     return out
 
 

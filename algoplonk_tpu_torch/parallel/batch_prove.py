@@ -13,8 +13,10 @@ others' device work, as far as the interpreter lock lets the threads run.
 Each distinct device gets one copy of the proving key, made before the
 workers start, and the devices are synchronised then, so that the keys,
 written on the default stream, are complete before any worker's stream
-reads them.  The launch counters of ``ops/`` are not thread-safe: read them
-around a batch only as a lower bound.
+reads them.  Each proof is one request of ``utils/profiling.py``'s
+recorder, its tree built by its worker's thread, as
+``CompiledCircuit.verify`` builds one; the launch counters of ``ops/`` are
+exact under the workers' threads.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ def prove_batch(cc, assignments, devices=None, self_verify: bool = True, rng=Non
     from ..frontend import witness as witness_mod
     from ..plonk import verify as verify_mod
     from ..plonk.prove import Prover
+    from ..utils import profiling
 
     if devices is None:
         if not torch.cuda.is_available():
@@ -58,12 +61,16 @@ def prove_batch(cc, assignments, devices=None, self_verify: bool = True, rng=Non
             torch.cuda.synchronize(dev)
 
     def one(i, dev):
-        prover = Prover(keys[dev], cc.ccs, rng=rng)
-        wit = witness_mod.solve(cc.ccs, assignments[i], commitment_solver=prover.bsb_solver)
-        proof = prover.prove(wit)
-        if self_verify and not verify_mod.verify(cc.vk, proof, wit.public_values):
-            raise RuntimeError(f"proof {i} failed native verification")
-        return VerifiedProof(proof, wit, cc.curve, dict(prover.phase_seconds))
+        with profiling.request("verify"):
+            prover = Prover(keys[dev], cc.ccs, rng=rng)
+            wit = witness_mod.solve(cc.ccs, assignments[i], commitment_solver=prover.bsb_solver)
+            proof = prover.prove(wit)
+            if self_verify:
+                with profiling.span("self_verify"):
+                    ok = verify_mod.verify(cc.vk, proof, wit.public_values)
+                if not ok:
+                    raise RuntimeError(f"proof {i} failed native verification")
+            return VerifiedProof(proof, wit, cc.curve, dict(prover.phase_seconds))
 
     n_workers = min(len(devices), len(assignments))
 

@@ -15,11 +15,18 @@ give the same proof.  Fiat-Shamir runs on host through the reference
 transcript, so the proof bytes equal the reference's for the same blinding
 (``rng=False``: none).
 
-``phase_seconds`` records the host time of each round after the prover's
-stream has drained (the commits already wait on it, so the marks cost
-nothing).  ``AP_PROVE_PROFILE=1`` prints the reference's profile on stderr:
-each round's seconds and, on the four-step path, round 3's seven
-sub-phases, with the card's memory in use and its peak (``_profile``).
+Spans (``utils/profiling.py``): ``prove``, with one child a round,
+``r1``..``r5``, each ending after the prover's stream has drained (the
+commits already wait on it, so the marks cost nothing); ``wires`` in r1
+(the wire columns on host ints and their encoding); round 3's sub-phases
+``r3.qk`` .. ``r3.intt`` on the four-step path and ``r3.commits``;
+``transcript`` around each Fiat-Shamir step; ``bsb_commit`` around
+``bsb_solver``.  ``phase_seconds`` holds the rounds' durations on the
+spans' clock, recorded or not.  ``AP_PROVE_PROFILE=1`` prints the
+reference's profile on stderr from the spans (``PROFILE_LABELS``): each
+round's seconds and, on the four-step path, round 3's seven sub-phases,
+with the card's memory in use and its peak, after draining the prover's
+stream at each printed span's end.
 
 With a mesh (``parallel/mesh.py``), as in the reference, every commit runs
 the sharded MSM and every size-n iNTT, quotient lift and final coset iNTT
@@ -32,7 +39,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 from dataclasses import dataclass, field
 
 import torch
@@ -49,6 +55,7 @@ from ..ops.ntt_kernels import four_step_plan
 from ..parallel.msm_sharded import sharded_commit
 from ..parallel.mesh import all_gather
 from ..parallel.ntt_sharded import sharded_ntt_fn
+from ..utils import profiling
 from ..utils.compile_cache import enable_persistent_cache
 from .keys import ProvingKey
 
@@ -57,6 +64,24 @@ from .keys import ProvingKey
 # (its AP_QUOTIENT_SYNC_MIN_LOG, prove.py:511-513).  A constant here: on an
 # 80 GB card no size the port runs needs another value.
 EVICT_MIN_LOG = 21
+
+# The spans AP_PROVE_PROFILE=1 prints, by the reference's labels
+# (prove.py:612-641), in the order they end.
+PROFILE_LABELS = {
+    "r1": "r1 wires+commits",
+    "r2": "r2 grand product",
+    "r3.qk": "r3.qk+tables",
+    "r3.lifts": "r3.wire-lifts",
+    "r3.gate": "r3.gate(5 lifts+mul)",
+    "r3.inv": "r3.A+inversion",
+    "r3.perm": "r3.perm(5 lifts)",
+    "r3.combine": "r3.L1+combine",
+    "r3.intt": "r3.4n-iNTT",
+    "r3.commits": "r3.H-commits x3",
+    "r3": "r3 quotient",
+    "r4": "r4 evals+linearization",
+    "r5": "r5 openings",
+}
 
 @dataclass
 class Proof:
@@ -152,6 +177,8 @@ class Prover:
         self._bsb = []  # per-proof BSB22 state, filled by bsb_solver
         self.phase_seconds: dict[str, float] = {}
         self._prof = False   # AP_PROVE_PROFILE=1, read at each prove
+        self._round = None   # the open round's span
+        self._sub = None     # the open round-3 sub-phase's span
 
     # ---------------------------------------------------------------- utils
 
@@ -227,16 +254,18 @@ class Prover:
     def bsb_solver(self, info, committed_values) -> int:
         """Witness-solver hook for frontend commitments: interpolate the
         committed polynomial over the linking rows, KZG-commit it, and return
-        hash_fr(commitment) as the commitment variable's value."""
-        n, npub, W = self.pk.n, self.pk.nb_public, self.f.W
-        rows = [npub + row for row in info.linking_rows]
-        c_ev = torch.zeros((n, W), dtype=torch.int32, device=self.device)
-        if rows:
-            c_ev = _scatter_rows(c_ev, rows, self.f.encode(committed_values))
-        c_c = self._intt_n(c_ev)
-        com = self._commit(c_c)
-        self._bsb.append({"com": com, "c_c": c_c, "info": info})
-        return hash_fr_bsb22(self.curve, self.tr.point(com))
+        hash_fr(commitment) as the commitment variable's value.  Span:
+        ``bsb_commit``."""
+        with profiling.span("bsb_commit"):
+            n, npub, W = self.pk.n, self.pk.nb_public, self.f.W
+            rows = [npub + row for row in info.linking_rows]
+            c_ev = torch.zeros((n, W), dtype=torch.int32, device=self.device)
+            if rows:
+                c_ev = _scatter_rows(c_ev, rows, self.f.encode(committed_values))
+            c_c = self._intt_n(c_ev)
+            com = self._commit(c_c)
+            self._bsb.append({"com": com, "c_c": c_c, "info": info})
+            return hash_fr_bsb22(self.curve, self.tr.point(com))
 
     # ------------------------------------------------------------ round 3
 
@@ -349,7 +378,9 @@ class Prover:
         order, so a barrier frees nothing), and buffer donation, for which
         dropping the last reference stands in.
 
-        With AP_PROVE_PROFILE=1, the reference's seven r3 sub-phase marks."""
+        Each sub-phase is a span (``_step``), as the reference's seven r3
+        marks; the prove's ``r3.qk`` ends at the entry here, and ``r3.intt``
+        where the prove opens ``r3.commits``."""
         f, r, n, pk = self.f, self.r, self.pk.n, self.pk
         fsp = four_step_plan(self.curve.name, pk.log_n + 2, self.device)
         k1 = self.curve.coset_shift
@@ -363,11 +394,11 @@ class Prover:
         def lift(coeffs):
             return fsp.ntt_scr(polyops.pad_rows(coeffs, N4), coset_shift=g)
 
-        self._profile("r3.qk+tables")
+        self._step("r3.lifts")
         if big:
             fsp.drop_tables(inverse=True)   # the forward transforms run first
         l4, r4, o4 = lift(l_c), lift(r_c), lift(o_c)
-        self._profile("r3.wire-lifts")
+        self._step("r3.gate")
         gate = f.mul(lift(pk.ql_c), l4)
         gate = f.add(gate, f.mul(lift(pk.qr_c), r4))
         gate = f.add(gate, f.mul(lift(pk.qm_c), f.mul(l4, r4)))
@@ -375,7 +406,7 @@ class Prover:
         gate = f.add(gate, lift(qk_c_complete))
         for i, b in enumerate(bsb):
             gate = f.add(gate, f.mul(lift(pk.qcp_c[i]), lift(b["c_c"])))
-        self._profile("r3.gate(5 lifts+mul)")
+        self._step("r3.inv")
 
         xs = fsp.coset_x_scr(g)
         bxs = f.mul(xs, beta_l)
@@ -394,7 +425,7 @@ class Prover:
             for q in range(N4 // chunk)
         ])
         del xs
-        self._profile("r3.A+inversion")
+        self._step("r3.perm")
 
         z4 = lift(z_c)
         perm = f.mul(A, z4)
@@ -406,7 +437,7 @@ class Prover:
         zw_c = f.mul(z_c, polyops.powers(f, self._const(pk.omega), z_c.shape[0]))
         perm = f.sub(f.mul(D, lift(zw_c)), perm)
         del D, zw_c
-        self._profile("r3.perm(5 lifts)")
+        self._step("r3.combine")
 
         L1 = f.mul(f.mul(fsp.tile_by_k_mod4(self.zh_pat_ints), inv_all), f.sub(z4, f.one))
         del inv_all, z4
@@ -417,46 +448,65 @@ class Prover:
         del gate, perm, L1
         h_ev = f.mul(num_total, fsp.tile_by_k_mod4(self.inv_zh_pat_ints))
         del num_total
-        self._profile("r3.L1+combine")
+        self._step("r3.intt")
         if big:
             fsp.drop_tables(inverse=False)  # the lifts are done
         h_c = fsp.intt_scr(h_ev, coset_shift=g)
         del h_ev
-        self._profile("r3.4n-iNTT")
         m = n + 2
         return h_c[:m], h_c[m : 2 * m], h_c[2 * m : 3 * m]
 
     # ---------------------------------------------------------------- prove
 
-    def _mark(self, name: str) -> None:
+    def _drain(self) -> None:
         # the prover's own stream: concurrent provers on other streams of
         # the card (parallel/batch_prove.py) are not waited for
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
-        now = time.perf_counter()
-        self.phase_seconds[name] = now - self._t
-        self._t = now
 
-    def _profile(self, name: str) -> None:
-        """With AP_PROVE_PROFILE=1, print the seconds since the last mark on
-        stderr, as the reference's profile does (prove.py:612-641); on the
-        card, after draining the prover's own stream, with the memory in use
-        and its peak.  The profile keeps a clock of its own: it leaves
-        ``phase_seconds`` as it is."""
-        if not self._prof:
+    def _printed(self, sp) -> None:
+        """With AP_PROVE_PROFILE=1, print the closed span ``sp`` on stderr
+        as the reference's profile does (prove.py:612-641), with the card's
+        memory in use at its end and the peak."""
+        if not self._prof or sp is None:
             return
-        on_card = self.device.type == "cuda"
-        if on_card:
-            torch.cuda.current_stream(self.device).synchronize()
-        now = time.perf_counter()
-        mem = (f"  [hbm {torch.cuda.memory_allocated(self.device) / 2**30:.2f} GiB in "
-               f"use, peak {torch.cuda.max_memory_allocated(self.device) / 2**30:.2f}]"
-               if on_card else "")
-        print(f"  prove phase {name}: {now - self._prof_t:.2f}s{mem}", file=sys.stderr,
-              flush=True)
-        self._prof_t = now
+        mem = (f"  [hbm {sp.mem / 2**30:.2f} GiB in use, peak "
+               f"{torch.cuda.max_memory_allocated(self.device) / 2**30:.2f}]"
+               if sp.mem is not None else "")
+        print(f"  prove phase {PROFILE_LABELS[sp.name]}: {sp.seconds:.2f}s{mem}",
+              file=sys.stderr, flush=True)
+
+    def _mark(self, name: str, nxt: str | None = None) -> None:
+        """End round ``name`` after the prover's stream has drained, into
+        ``phase_seconds`` and its span, and begin round ``nxt`` there."""
+        self._drain()
+        now = profiling.clock()
+        self.phase_seconds[name] = (now - self._t) * 1e-9
+        self._t = now
+        sp = self._round
+        profiling.close_span(sp, now)
+        self._printed(sp)
+        self._round = profiling.open_span(nxt, now, mem=self.device) if nxt else None
+
+    def _step(self, name: str | None, t_ns: int | None = None) -> None:
+        """End the open round-3 sub-phase (draining the stream first under
+        AP_PROVE_PROFILE=1) and begin ``name`` (None: none) there."""
+        sp = self._sub
+        if sp is not None:
+            if self._prof:
+                self._drain()
+            t_ns = profiling.clock()
+            profiling.close_span(sp, t_ns)
+            self._printed(sp)
+        self._sub = profiling.open_span(name, t_ns, mem=self.device) if name else None
 
     def prove(self, witness: Witness) -> Proof:
+        """Prove a solved witness.  Span: ``prove``, a request's root where
+        nothing is open (a bare prove)."""
+        with profiling.request("prove"):
+            return self._prove(witness)
+
+    def _prove(self, witness: Witness) -> Proof:
         pk, f, r, n = self.pk, self.f, self.r, self.pk.n
         curve = self.curve
         vk = pk.vk
@@ -471,21 +521,25 @@ class Prover:
         bsb_coms = [b["com"] for b in bsb]
         self.phase_seconds = {}
         self._prof = os.environ.get("AP_PROVE_PROFILE", "") == "1"
-        self._t = self._prof_t = time.perf_counter()
+        self._t = profiling.clock()
+        self._sub = None
+        self._round = profiling.open_span("r1", self._t, mem=self.device)
 
         # ---- round 1: wire polynomials + commitments (blinded)
-        l_ints, r_ints, o_ints = wire_values(self.ccs, witness, n)
-        l_ev, r_ev, o_ev = f.encode(l_ints), f.encode(r_ints), f.encode(o_ints)
+        with profiling.span("wires"):
+            l_ints, r_ints, o_ints = wire_values(self.ccs, witness, n)
+            l_ev, r_ev, o_ev = f.encode(l_ints), f.encode(r_ints), f.encode(o_ints)
         l_c = self._blind(self._intt_n(l_ev), 2)
         r_c = self._blind(self._intt_n(r_ev), 2)
         o_c = self._blind(self._intt_n(o_ev), 2)
         l_com = self._commit(l_c)
         r_com = self._commit(r_c)
         o_com = self._commit(o_c)
-        self._mark("r1")
-        self._profile("r1 wires+commits")
-        gamma_d, gamma = self.tr.gamma(vk, pub, l_com, r_com, o_com)
-        beta_d, beta = self.tr.beta(gamma_d)
+        self._mark("r1", "r2")
+        with profiling.span("transcript"):
+            gamma_d, gamma = self.tr.gamma(vk, pub, l_com, r_com, o_com)
+        with profiling.span("transcript"):
+            beta_d, beta = self.tr.beta(gamma_d)
 
         # ---- round 2: grand product
         k1 = curve.coset_shift
@@ -512,9 +566,12 @@ class Prover:
         z_c = self._blind(self._intt_n(z_ev), 3)
         z_com = self._commit(z_c)
         del num, den, ratio, pp, z_ev, id2, id3, omega_pows, l_ev, r_ev, o_ev
-        self._mark("r2")
-        self._profile("r2 grand product")
-        alpha_d, alpha = self.tr.alpha(beta_d, bsb_coms, z_com)
+        self._mark("r2", "r3")
+        lm = self._use_lm_quotient()
+        if lm:
+            self._step("r3.qk", self._t)
+        with profiling.span("transcript"):
+            alpha_d, alpha = self.tr.alpha(beta_d, bsb_coms, z_com)
 
         # ---- round 3: quotient on the 4n coset.  qk completion: only the
         # public rows and the BSB22 commitment rows differ from pk.qk_ev
@@ -528,15 +585,16 @@ class Prover:
         if upd_rows:
             qk_ev_complete = _scatter_rows(pk.qk_ev, upd_rows, f.encode(upd_vals))
         qk_c_complete = self._intt_n(qk_ev_complete)
-        quotient = self._quotient_lm if self._use_lm_quotient() else self._quotient
+        quotient = self._quotient_lm if lm else self._quotient
         h0_c, h1_c, h2_c = quotient(l_c, r_c, o_c, z_c, qk_c_complete, bsb, beta, gamma, alpha)
+        self._step("r3.commits")
         h0 = self._commit(h0_c)
         h1 = self._commit(h1_c)
         h2 = self._commit(h2_c)
-        self._profile("r3.H-commits x3")
-        self._profile("r3 quotient")
-        self._mark("r3")
-        zeta_d, zeta = self.tr.zeta(alpha_d, h0, h1, h2)
+        self._step(None)
+        self._mark("r3", "r4")
+        with profiling.span("transcript"):
+            zeta_d, zeta = self.tr.zeta(alpha_d, h0, h1, h2)
 
         # ---- round 4: evaluations
         zl = self._const(zeta)
@@ -597,14 +655,14 @@ class Prover:
         lin = acc(lin, h1_c, (-zh_z) % r * zeta_m % r)
         lin = acc(lin, h2_c, (-zh_z) % r * zeta_m % r * zeta_m % r)
         lin_com = self._commit(lin)
-        self._mark("r4")
-        self._profile("r4 evals+linearization")
+        self._mark("r4", "r5")
 
         # ---- round 5: batched opening at zeta
-        fold_d, fold_r = self.tr.fold(
-            zeta, lin_com, l_com, r_com, o_com, vk,
-            lin_at_z, l_z, r_z, o_z, s1_z, s2_z, qcp_z, zw_z,
-        )
+        with profiling.span("transcript"):
+            fold_d, fold_r = self.tr.fold(
+                zeta, lin_com, l_com, r_com, o_com, vk,
+                lin_at_z, l_z, r_z, o_z, s1_z, s2_z, qcp_z, zw_z,
+            )
         folded = lin
         rv = 1
         for coeffs in (l_c, r_c, o_c, pk.s1_c, pk.s2_c, *pk.qcp_c):
@@ -616,7 +674,6 @@ class Prover:
         q2_coeffs, _ = polyops.kzg_quotient(f, z_c, self._const(wzeta))
         opening_z_omega = self._commit(q2_coeffs[:mlin])
         self._mark("r5")
-        self._profile("r5 openings")
         return Proof(
             l_com=l_com, r_com=r_com, o_com=o_com,
             h0=h0, h1=h1, h2=h2,

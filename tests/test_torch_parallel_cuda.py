@@ -166,6 +166,41 @@ def test_prove_batch_evicting_quotient_on_card(cuda_device, monkeypatch):
     assert [vp.marshal_proof() for vp in vps] == want
 
 
+def test_prove_batch_records_a_tree_a_proof_on_card(cuda_device):
+    """Four workers on one card with the recorder on: one request a proof,
+    each whole on its worker's thread (solve, prove with r1..r5,
+    self-verify), and the launch counters, exact under the threads, equal
+    the launches charged to the spans."""
+    from algoplonk_tpu_torch.ops import curve_kernels as ck
+    from algoplonk_tpu_torch.ops import field_kernels as fk
+    from algoplonk_tpu_torch.utils import profiling
+
+    SquareChain, chain = square_chain(10)
+    r = apt.BN254.fr.modulus
+    cc = apt.compile(SquareChain, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device=cuda_device)
+    xs = [0xA1607 + i for i in range(4)]
+
+    def launched():
+        return sum(ck.LAUNCHES.values()) + sum(fk.LAUNCHES.values()) + sum(nk.LAUNCHES.values())
+
+    before = launched()
+    since = profiling.clock()
+    with profiling.RECORDER.recording():
+        prove_batch(cc, [SquareChain(x=x, y=pow(x, 1 << chain, r)) for x in xs],
+                    devices=[cuda_device] * 4, rng=False)
+    torch.cuda.synchronize()
+    reqs = profiling.RECORDER.requests(since_ns=since)
+    assert len(reqs) == 4 and len({q.thread for q in reqs}) == 4
+    for q in reqs:
+        assert [sp.name for sp in q.spans if sp.parent is q.root] == ["solve", "prove",
+                                                                      "self_verify"]
+        assert [sp.name for sp in q.spans if sp.parent and sp.parent.name == "prove"] == [
+            "r1", "r2", "r3", "r4", "r5"]
+        assert {sp.thread for sp in q.spans} == {q.thread}
+    charged = sum(sum(sp.launches.values()) for q in reqs for sp in q.spans)
+    assert charged == launched() - before > 0
+
+
 def test_prove_batch_default_devices(cuda_device):
     """Without a device list the batch runs on every card torch finds."""
     SquareChain, chain = square_chain(4)

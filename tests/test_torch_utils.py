@@ -1,14 +1,17 @@
 """The port's utils: ABI encoding and toolchain staleness logic (the
 reference's tests/test_utils.py), the compiled-circuit cache (a round trip
 proves byte-equal; a file naming a reference class is refused without
-importing it), the phase timer and trace, and the kernel build cache."""
+importing it), the trace with the recorder's span rows, and the kernel
+build cache."""
 
 import io
+import json
 import os
 import pathlib
 import pickle
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -118,7 +121,7 @@ def global_pickle(module: str, name: str) -> bytes:
     ("algoplonk_tpu_torch.utils.toolchain", "subprocess.run"),  # what a module imports
     ("algoplonk_tpu_torch.utils.toolchain", "subprocess"),  # a module
     ("algoplonk_tpu_torch.utils.toolchain", "should_recompile"),  # a function
-    ("algoplonk_tpu_torch.utils.profiling", "OrderedDict"),  # a class from elsewhere
+    ("algoplonk_tpu_torch.utils.profiling", "deque"),  # a class from elsewhere
     ("builtins", "eval"),
 ])
 def test_cache_refuses_what_is_not_a_package_class(module, name):
@@ -168,15 +171,25 @@ def test_cache_refuses_reference_classes(tiny, tmp_path):
     assert "loaded: []" in proc.stdout
 
 
-def test_phase_timer_and_trace(tmp_path):
-    with profiling.phase_timer() as t:
-        for _ in range(2):
-            with t.phase("add"):
-                torch.ones(8).add_(1)
-    assert list(t.times) == ["add"] and t.times["add"] > 0
+def test_torch_trace_holds_the_span_rows(tmp_path):
+    """torch_trace records the block's requests and writes their spans into
+    trace.json as rows of their own, on the trace's clock: each span row
+    lies around the operator it encloses, 20 ms inside it."""
     with profiling.torch_trace(str(tmp_path)):
-        torch.ones(8).mul_(2)
-    assert (tmp_path / "trace.json").stat().st_size > 0
+        with profiling.request("verify"):
+            with profiling.span("solve"):
+                time.sleep(0.02)
+                torch.ones(8).mul_(2)
+                time.sleep(0.02)
+    with open(tmp_path / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    rows = {e["name"]: e for e in events if e.get("cat") == "ap_span"}
+    assert set(rows) == {"verify", "solve"}
+    assert rows["solve"]["args"] == {"request": rows["verify"]["args"]["request"],
+                                     "parent": "verify"}
+    mul = next(e for e in events if e.get("name") == "aten::mul_")
+    for row in rows.values():
+        assert row["ts"] <= mul["ts"] and mul["ts"] + mul["dur"] <= row["ts"] + row["dur"]
 
 
 def test_persistent_cache_needs_a_card(monkeypatch):

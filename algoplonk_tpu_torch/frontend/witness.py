@@ -14,8 +14,11 @@ JAX package.
 
 from __future__ import annotations
 
+import itertools
 import struct
 from dataclasses import dataclass
+
+import numpy as np
 
 from ..utils import profiling
 from .api import CompiledConstraintSystem
@@ -156,7 +159,9 @@ def wire_values(ccs: CompiledConstraintSystem, witness: Witness, n: int):
     """Build the three wire columns over the padded domain of size n.
 
     Row layout (gnark plonk convention): nb_public public-input rows first
-    (l = the public value), then the internal gates, then zero padding."""
+    (l = the public value), then the internal gates, then zero padding.
+    The host definition of the prover's columns, which gather the witness
+    by ``wire_index``."""
     vals = witness.values
     npub = ccs.nb_public
     l = [0] * n
@@ -172,3 +177,17 @@ def wire_values(ccs: CompiledConstraintSystem, witness: Witness, n: int):
         r_[row] = vals[g.r]
         o[row] = vals[g.o]
     return l, r_, o
+
+
+def wire_index(ccs: CompiledConstraintSystem, n: int) -> np.ndarray:
+    """The variables ``wire_values`` reads: [3, n] int64, the l, r and o
+    columns, row i holding the variable whose value lands at row i.
+    Padding rows hold ``ccs.nb_vars``, the index of a zero appended to the
+    values."""
+    npub, ng = ccs.nb_public, len(ccs.gates)
+    idx = np.full((3, n), ccs.nb_vars, dtype=np.int64)
+    idx[:, :npub] = np.arange(npub)
+    gates = np.fromiter(itertools.chain.from_iterable((g.l, g.r, g.o) for g in ccs.gates),
+                        dtype=np.int64, count=3 * ng)
+    idx[:, npub : npub + ng] = gates.reshape(ng, 3).T
+    return idx

@@ -34,6 +34,7 @@ import torch
 
 from ..fields.params import FieldParams
 from ..fields.words import WordField, ints_to_words, word_field, words_to_ints
+from ..utils import profiling
 from ._build import settle
 
 _DB = 16                    # digit bits
@@ -271,10 +272,12 @@ class FieldOps:
         The host reduces mod p and packs little-endian bytes; the device
         applies one Montgomery multiply by R^2.  Unlike the reference's
         ``encode_bytes`` (ops/field.py:328) any int is accepted, negative
-        ones included."""
+        ones included.  Charges the ints to the recorder's open span
+        (``utils/profiling.py``: ``host_ints``)."""
         p = self.modulus
-        words = self._words([int(v) % p for v in values])
-        return self.to_mont(words)
+        ints = [int(v) % p for v in values]
+        profiling.charge_ints(len(ints))
+        return self.to_mont(self._words(ints))
 
     encode_bytes = encode  # the reference's name for the byte-packing path
 

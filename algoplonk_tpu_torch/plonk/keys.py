@@ -69,6 +69,10 @@ class ProvingKey:
     qcp_ev: list = field(default_factory=list)
     qcp_c: list = field(default_factory=list)
     vk: VerifyingKey | None = None
+    # [3, n] long: the variable each wire row reads (frontend/witness.py:
+    # wire_index); None in a key that did not come from this package's
+    # setup, until its first Prover builds it
+    wire_rows: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -81,6 +85,8 @@ class ProvingKey:
         if device == self.device:
             return self
         moved = {name: getattr(self, name).to(device) for name in (*_FR_FIELDS, "srs_g1")}
+        if self.wire_rows is not None:
+            moved["wire_rows"] = self.wire_rows.to(device)
         return replace(self, qcp_ev=[t.to(device) for t in self.qcp_ev],
                        qcp_c=[t.to(device) for t in self.qcp_c], **moved)
 

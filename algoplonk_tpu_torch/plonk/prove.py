@@ -18,7 +18,8 @@ transcript, so the proof bytes equal the reference's for the same blinding
 Spans (``utils/profiling.py``): ``prove``, with one child a round,
 ``r1``..``r5``, each ending after the prover's stream has drained (the
 commits already wait on it, so the marks cost nothing); ``wires`` in r1
-(the wire columns on host ints and their encoding); round 3's sub-phases
+(the witness encoded once and the three wire columns gathered from it on
+the key's device); round 3's sub-phases
 ``r3.qk`` .. ``r3.intt`` on the four-step path and ``r3.commits``;
 ``transcript`` around each Fiat-Shamir step; ``bsb_commit`` around
 ``bsb_solver``.  ``phase_seconds`` holds the rounds' durations on the
@@ -45,7 +46,7 @@ import torch
 
 from ..fields.params import domain_generator, gnark_compat_enabled
 from ..frontend.api import CompiledConstraintSystem
-from ..frontend.witness import Witness, wire_values
+from ..frontend.witness import Witness, wire_index
 from ..plonk.transcript import Transcript, hash_fr_bsb22
 from ..ops import poly as polyops
 from ..ops.field import field_ops
@@ -116,6 +117,15 @@ def _scatter_rows(base, rows: list[int], values):
     return out
 
 
+def wire_columns(f, values: list, wire_rows) -> tuple:
+    """The l, r and o columns [n, W] of a solved witness's ``values``:
+    encoded once, with a zero row appended for the padding rows, and
+    gathered by ``wire_rows`` [3, n] (frontend/witness.py: ``wire_index``).
+    Word for word ``f.encode`` of ``wire_values``' columns."""
+    vals = polyops.pad_rows(f.encode(values), len(values) + 1)
+    return tuple(vals.index_select(0, rows) for rows in wire_rows)
+
+
 class Prover:
     """PLONK prover on the proving key's device.
 
@@ -145,6 +155,8 @@ class Prover:
             self._rand = lambda r: rng.randrange(r)
         self.curve = pk.curve
         self.device = pk.device
+        if pk.wire_rows is None:    # built once per key, where setup did not
+            pk.wire_rows = torch.from_numpy(wire_index(ccs, pk.n)).to(self.device)
         # the prover derives its domains from the current constants mode,
         # while pk bakes the mode it was built under: refuse a mismatch
         exp_omega = domain_generator(self.curve.name, pk.log_n)
@@ -237,17 +249,22 @@ class Prover:
         return self.plan.intt(ev) if out is None else out
 
     def _blind(self, coeffs, nb: int):
-        """coeffs + (b_0 + b_1 X + ...) (X^n - 1): hides the polynomial off
-        H without changing it on H.  Output has n + nb coefficients."""
-        r, n = self.r, self.pk.n
-        bs = [self._rand(r) for _ in range(nb)]
+        """coeffs [n, W] + (b_0 + b_1 X + ...) (X^n - 1): hides the
+        polynomial off H without changing it on H.  Output has n + nb
+        coefficients, of which only rows i (-b_i) and n + i (+b_i) change:
+        those alone are packed and added."""
+        n = self.pk.n
+        bs = [self._rand(self.r) for _ in range(nb)]
         if all(b == 0 for b in bs):
             return coeffs
-        ext = [0] * (n + nb)
+        delta: dict = {}
         for i, b in enumerate(bs):
-            ext[i] = (ext[i] - b) % r
-            ext[n + i] = (ext[n + i] + b) % r
-        return self.f.add(polyops.pad_rows(coeffs, n + nb), self.f.encode(ext))
+            delta[i] = delta.get(i, 0) - b
+            delta[n + i] = delta.get(n + i, 0) + b
+        rows = torch.tensor(list(delta), dtype=torch.long, device=self.device)
+        out = polyops.pad_rows(coeffs, n + nb)      # a new tensor: coeffs has n rows
+        out[rows] = self.f.add(out[rows], self.f.encode(list(delta.values())))
+        return out
 
     # ------------------------------------------------------------- BSB22
 
@@ -527,8 +544,7 @@ class Prover:
 
         # ---- round 1: wire polynomials + commitments (blinded)
         with profiling.span("wires"):
-            l_ints, r_ints, o_ints = wire_values(self.ccs, witness, n)
-            l_ev, r_ev, o_ev = f.encode(l_ints), f.encode(r_ints), f.encode(o_ints)
+            l_ev, r_ev, o_ev = wire_columns(f, witness.values, pk.wire_rows)
         l_c = self._blind(self._intt_n(l_ev), 2)
         r_c = self._blind(self._intt_n(r_ev), 2)
         o_c = self._blind(self._intt_n(o_ev), 2)

@@ -10,9 +10,11 @@ commitments in the monomial basis through the device MSM.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..fields.params import domain_generator
 from ..frontend.api import CompiledConstraintSystem
+from ..frontend.witness import wire_index
 from ..setups.registry import SRS, next_power_of_two
 from ..ops.field import field_ops
 from ..ops.msm import msm_ctx
@@ -56,10 +58,8 @@ def setup(ccs: CompiledConstraintSystem, srs: SRS) -> tuple[ProvingKey, Verifyin
         qcp_vecs.append(v)
 
     # ------------------------------------------------------- wire slot table
-    slots = np.full((3, n), -1, dtype=np.int64)
-    slots[:, :npub] = np.arange(npub)
-    for j, g in enumerate(ccs.gates):
-        slots[:, npub + j] = (g.l, g.r, g.o)
+    wire_rows = wire_index(ccs, n)
+    slots = np.where(wire_rows < ccs.nb_vars, wire_rows, -1)
 
     # ------------------------------------------------------------ sigma
     var_slots: dict[int, list[tuple[int, int]]] = {}
@@ -124,5 +124,6 @@ def setup(ccs: CompiledConstraintSystem, srs: SRS) -> tuple[ProvingKey, Verifyin
         qo_c=coeffs["qo"], qk_c=coeffs["qk"],
         s1_c=coeffs["s1"], s2_c=coeffs["s2"], s3_c=coeffs["s3"],
         srs_g1=srs_dev, qcp_ev=qcp_ev, qcp_c=qcp_c, vk=vk,
+        wire_rows=torch.from_numpy(wire_rows).to(device),
     )
     return pk, vk

@@ -10,7 +10,8 @@ benchmark's per-layer readers and an operator's ``torch_trace``.
 A span is a named interval on ``time.perf_counter_ns()`` with its parent,
 the request it belongs to and its thread, and its self counts: the kernel
 launches made while it was the innermost open span (by kernel) and the
-host nanoseconds spent inside the kernel wrappers of ``ops/`` for them.  A
+host nanoseconds spent inside the kernel wrappers of ``ops/`` for them,
+and the Python ints ``FieldOps.encode`` packed for the device.  A
 request is the tree under one root span: ``CompiledCircuit.verify``,
 one item of ``prove_batch``, or a bare ``Prover.prove``.  Each thread keeps
 its own stack, so ``prove_batch``'s workers each build their own tree.
@@ -64,7 +65,7 @@ class Span:
     """One named interval of a request; ``end`` is None while it is open."""
 
     __slots__ = ("name", "start", "end", "parent", "request", "thread", "launches",
-                 "dispatch_ns", "mem", "_mem_device")
+                 "dispatch_ns", "host_ints", "mem", "_mem_device")
 
     def __init__(self, name: str, start: int, parent, request: int, thread: int, mem_device):
         self.name = name
@@ -75,6 +76,7 @@ class Span:
         self.thread = thread
         self.launches: dict = {}        # kernel -> launches while innermost
         self.dispatch_ns = 0            # host ns inside the kernel wrappers for them
+        self.host_ints = 0              # ints FieldOps.encode packed while innermost
         self.mem = None                 # device bytes allocated at the end, where asked
         self._mem_device = mem_device
 
@@ -218,6 +220,14 @@ def charge(kernel: str, t0: int) -> None:
     sp.dispatch_ns += clock() - t0
 
 
+def charge_ints(count: int) -> None:
+    """``count`` host ints packed for the device, to the innermost open
+    span of this thread's request."""
+    st = _tls
+    if st.req is not None:
+        st.stack[-1].host_ints += count
+
+
 def entry_ns() -> int:
     """A kernel wrapper's entry time, or 0 while no thread records."""
     return clock() if LIVE else 0
@@ -337,6 +347,8 @@ def span_rows(requests: list, shift_us: float) -> list:
             if sp.launches:
                 args["launches"] = dict(sp.launches)
                 args["dispatch_us"] = sp.dispatch_ns / 1e3
+            if sp.host_ints:
+                args["host_ints"] = sp.host_ints
             if sp.mem is not None:
                 args["mem_bytes"] = sp.mem
             rows.append({"ph": "X", "cat": "ap_span", "name": sp.name, "pid": pid,

@@ -5,7 +5,9 @@ an ``[n, W]`` word tensor and each butterfly stage is one batched field
 multiply plus an add and a sub over n/2 elements, which on the card are
 three field kernel launches (``FieldOps``, ops/field_kernels.py).  In the
 reference these stages are XLA too (the fused Pallas stage kernel serves only
-the limbs-major quotient, ops/ntt_kernels.py here).
+the limbs-major quotient, ops/ntt_kernels.py here).  Each transform is one
+``ntt.radix2`` span (``utils/profiling.py``), which its launches are
+charged to.
 
 Twiddles derive from ``domain_generator``, which depends on the gnark-compat
 mode, so plans are cached per mode as well as per curve, size and device.
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..fields.params import CURVES, CurveParams, domain_generator, gnark_compat_enabled
+from ..utils import profiling
 from ._build import settle
 from .field import field_ops
 
@@ -59,19 +62,21 @@ class NttPlan:
         self._shift_tables: dict = {}
 
     def _transform(self, a, inverse: bool):
+        """One radix-2 transform.  Span: ``ntt.radix2``."""
         f = self.f
         n, W = self.n, f.W
         tw = self.tw_inv if inverse else self.tw_fwd
-        a = a[self.bitrev]
-        for s in range(self.log_n):
-            half = 1 << s
-            w = tw[:: n // (2 * half)][:half]               # [half, W]
-            a = a.reshape(n // (2 * half), 2, half, W)
-            u = a[:, 0]
-            v = f.mul(a[:, 1], w)
-            a = torch.stack([f.add(u, v), f.sub(u, v)], dim=1).reshape(n, W)
-        if inverse:
-            a = f.mul(a, self.n_inv_mont)
+        with profiling.span("ntt.radix2"):
+            a = a[self.bitrev]
+            for s in range(self.log_n):
+                half = 1 << s
+                w = tw[:: n // (2 * half)][:half]           # [half, W]
+                a = a.reshape(n // (2 * half), 2, half, W)
+                u = a[:, 0]
+                v = f.mul(a[:, 1], w)
+                a = torch.stack([f.add(u, v), f.sub(u, v)], dim=1).reshape(n, W)
+            if inverse:
+                a = f.mul(a, self.n_inv_mont)
         return a
 
     def ntt(self, coeffs):

@@ -20,7 +20,7 @@ Spans (``utils/profiling.py``): ``prove``, with one child a round,
 commits already wait on it, so the marks cost nothing); ``wires`` in r1
 (the witness encoded once and the three wire columns gathered from it on
 the key's device); round 3's sub-phases
-``r3.qk`` .. ``r3.intt`` on the four-step path and ``r3.commits``;
+``r3.qk`` .. ``r3.intt`` on either quotient path and ``r3.commits``;
 ``transcript`` around each Fiat-Shamir step; ``bsb_commit`` around
 ``bsb_solver``.  ``phase_seconds`` holds the rounds' durations on the
 spans' clock, recorded or not.  ``AP_PROVE_PROFILE=1`` prints the
@@ -191,6 +191,7 @@ class Prover:
         self._prof = False   # AP_PROVE_PROFILE=1, read at each prove
         self._round = None   # the open round's span
         self._sub = None     # the open round-3 sub-phase's span
+        self._sub_printed = True    # and whether the profile prints it
 
     # ---------------------------------------------------------------- utils
 
@@ -301,7 +302,12 @@ class Prover:
 
     def _quotient(self, l_c, r_c, o_c, z_c, qk_c_complete, bsb, beta, gamma, alpha):
         """Round-3 quotient, batch-major (the reference's _quotient_xla):
-        returns (h0_c, h1_c, h2_c) coefficient slices [n+2, W]."""
+        returns (h0_c, h1_c, h2_c) coefficient slices [n+2, W].
+
+        Its parts are spans under the four-step path's names, in this
+        path's order (``r3.lifts`` of the wires, ``r3.gate``, ``r3.perm``,
+        ``r3.inv`` of L1, ``r3.combine``, ``r3.intt``), that only record:
+        the reference prints none of them."""
         f, r, n, pk = self.f, self.r, self.pk.n, self.pk
         k1 = self.curve.coset_shift
         k2 = k1 * k1 % r
@@ -315,7 +321,9 @@ class Prover:
             return self.plan4.coset_ntt(polyops.pad_rows(coeffs, N4), g) if out is None else out
 
         # each selector is lifted just in time and dropped after use
+        self._step("r3.lifts", printed=False)
         l4, r4, o4 = lift(l_c), lift(r_c), lift(o_c)
+        self._step("r3.gate", printed=False)
         gate = f.mul(lift(pk.ql_c), l4)
         gate = f.add(gate, f.mul(lift(pk.qr_c), r4))
         gate = f.add(gate, f.mul(lift(pk.qm_c), f.mul(l4, r4)))
@@ -324,6 +332,7 @@ class Prover:
         for i, b in enumerate(bsb):
             gate = f.add(gate, f.mul(lift(pk.qcp_c[i]), lift(b["c_c"])))
 
+        self._step("r3.perm", printed=False)
         xs = f.mul(polyops.powers(f, self._const(self.w4), N4), self._const(g))
         bxs = f.mul(beta_l, xs)
         A = f.add(f.add(l4, bxs), gamma_l)
@@ -346,6 +355,7 @@ class Prover:
 
         # L1 on the coset: (x^n - 1) / (n (x - 1)); the batch inversion runs
         # in 4 independent chunks of n
+        self._step("r3.inv", printed=False)
         zh_tiled = self.zh_pattern.repeat(n, 1)
         inv_zh_tiled = self.inv_zh_pattern.repeat(n, 1)
         nconst = self._const(n)
@@ -358,6 +368,7 @@ class Prover:
         L1 = f.mul(zh_tiled, torch.cat(inv_parts))
         del inv_parts, zh_tiled, xs
 
+        self._step("r3.combine", printed=False)
         num_total = f.add(
             gate,
             f.add(
@@ -368,6 +379,7 @@ class Prover:
         del gate, perm, L1, z4m1
         h_ev = f.mul(num_total, inv_zh_tiled)
         del num_total
+        self._step("r3.intt", printed=False)
         h_c = self._sharded_transform(h_ev, pk.log_n + 2, inverse=True, coset_shift=g)
         if h_c is None:
             h_c = self.plan4.coset_intt(h_ev, g)
@@ -505,17 +517,22 @@ class Prover:
         self._printed(sp)
         self._round = profiling.open_span(nxt, now, mem=self.device) if nxt else None
 
-    def _step(self, name: str | None, t_ns: int | None = None) -> None:
-        """End the open round-3 sub-phase (draining the stream first under
-        AP_PROVE_PROFILE=1) and begin ``name`` (None: none) there."""
+    def _step(self, name: str | None, t_ns: int | None = None, printed: bool = True) -> None:
+        """End the open round-3 sub-phase and begin ``name`` (None: none)
+        there.  Under AP_PROVE_PROFILE=1 a ``printed`` sub-phase drains the
+        stream before it ends and is printed; the others (the batch-major
+        quotient's) only record."""
         sp = self._sub
         if sp is not None:
-            if self._prof:
+            shown = self._prof and self._sub_printed
+            if shown:
                 self._drain()
             t_ns = profiling.clock()
             profiling.close_span(sp, t_ns)
-            self._printed(sp)
+            if shown:
+                self._printed(sp)
         self._sub = profiling.open_span(name, t_ns, mem=self.device) if name else None
+        self._sub_printed = printed
 
     def prove(self, witness: Witness) -> Proof:
         """Prove a solved witness.  Span: ``prove``, a request's root where
@@ -584,8 +601,7 @@ class Prover:
         del num, den, ratio, pp, z_ev, id2, id3, omega_pows, l_ev, r_ev, o_ev
         self._mark("r2", "r3")
         lm = self._use_lm_quotient()
-        if lm:
-            self._step("r3.qk", self._t)
+        self._step("r3.qk", self._t, printed=lm)
         with profiling.span("transcript"):
             alpha_d, alpha = self.tr.alpha(beta_d, bsb_coms, z_com)
 

@@ -3,16 +3,28 @@
 Used by the native proof self-check (the reference calls gnark's plonk.Verify
 after every Prove, algoplonk.go:93) and by on-chain-equation
 tests.  Only a handful of pairings run per proof, so a clear, exact host
-implementation is the right tool — bulk compute stays on the TPU.
+implementation is the right tool — bulk compute stays on the card.
 
 Tower: Fp2 = Fp[u]/(u^2+1), Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v).
-xi = 9 + u (BN254) or 1 + u (BLS12-381).  Miller loops run on the untwisted
-curve over Fp12 with affine arithmetic; the final exponentiation uses the
-generic integer (p^4 - p^2 + 1) / r hard part (slow-but-exact; fine at this
-call volume).
+xi = 9 + u (BN254) or 1 + u (BLS12-381).
 
-Copied from ``algoplonk_tpu/host/pairing.py`` so that the port imports nothing of the
-JAX package.
+The Miller loop runs on the twist E'(Fp2) in homogeneous projective
+coordinates (no inversion), one loop for all the pairs of a product with one
+squaring of the accumulator a step.  Each line is evaluated at P and
+multiplied in sparsely: BN254's D-type twist gives lines on 1, w and w^3,
+BLS12-381's M-type twist lines on 1, w^2 and w^3 (the untwisted line times
+w^3).  These lines differ from the affine ones on the untwisted curve by
+factors in Fp4 or Fp6, which the final exponentiation sends to 1, so the
+pairing's value is the same.  The final exponentiation's hard part is the
+exact exponent (p^4 - p^2 + 1)/r, written through the curve's x and powers
+of p, with cyclotomic squarings (Granger-Scott) inside the powers:
+  BN254:     l0 + l1 p + l2 p^2 + p^3, l2 = 6x^2 + 1,
+             l1 = -36x^3 - 18x^2 - 12x + 1, l0 = -36x^3 - 30x^2 - 18x - 2;
+  BLS12-381: ((x - 1)^2 / 3) (x + p) (x^2 + p^2 - 1) + 1.
+
+Adapted from ``algoplonk_tpu/host/pairing.py`` (affine Miller loops on the
+untwisted curve, the hard part by the integer exponent), so that the port
+imports nothing of the JAX package; it returns the same pairing values.
 """
 
 from __future__ import annotations
@@ -21,6 +33,25 @@ import functools
 
 from ..fields.params import BLS12_381, BN254, CurveParams
 from .fp import GF2
+
+
+class Fp2(GF2):
+    """GF2 with u^2 = -1, as on both curves: a product in four multiplies
+    and two reductions."""
+
+    def __init__(self, p: int):
+        super().__init__(p, p - 1)
+
+    def mul(self, a, b):
+        a0, a1 = a
+        b0, b1 = b
+        p = self.p
+        return ((a0 * b0 - a1 * b1) % p, (a0 * b1 + a1 * b0) % p)
+
+    def sqr(self, a):
+        a0, a1 = a
+        p = self.p
+        return ((a0 + a1) * (a0 - a1) % p, 2 * a0 * a1 % p)
 
 
 class Fp6:
@@ -62,6 +93,27 @@ class Fp6:
     def sqr(self, a):
         return self.mul(a, a)
 
+    def mul_by_01(self, a, b0, b1):
+        """a * (b0 + b1 v)."""
+        f = self.f2
+        a0, a1, a2 = a
+        t0 = f.mul(a0, b0)
+        t1 = f.mul(a1, b1)
+        c0 = f.add(f.mul(self.xi, f.mul(a2, b1)), t0)
+        c1 = f.sub(f.mul(f.add(a0, a1), f.add(b0, b1)), f.add(t0, t1))
+        c2 = f.add(f.mul(a2, b0), t1)
+        return (c0, c1, c2)
+
+    def mul_by_1(self, a, b1):
+        """a * (b1 v)."""
+        f = self.f2
+        a0, a1, a2 = a
+        return (f.mul(self.xi, f.mul(a2, b1)), f.mul(a0, b1), f.mul(a1, b1))
+
+    def mul_by_fp2(self, a, c):
+        f = self.f2
+        return tuple(f.mul(x, c) for x in a)
+
     def mul_by_v(self, a):
         """a * v  (v^3 = xi)."""
         f = self.f2
@@ -86,7 +138,9 @@ class Fp12:
     def __init__(self, curve: CurveParams):
         p = curve.fp.modulus
         self.p = p
-        self.f2 = GF2(p, curve.fp2_nonresidue)
+        if curve.fp2_nonresidue % p != p - 1:
+            raise ValueError("the tower needs u^2 = -1")
+        self.f2 = Fp2(p)
         if curve.name == "bn254":
             self.xi = (9, 1)
         else:
@@ -96,17 +150,8 @@ class Fp12:
         e = (p - 1) // 6
         self.gammas = [self.f2.pow(self.xi, k * e) for k in range(6)]
 
-    def zero(self):
-        return (self.f6.zero(), self.f6.zero())
-
     def one(self):
         return (self.f6.one(), self.f6.zero())
-
-    def add(self, a, b):
-        return (self.f6.add(a[0], b[0]), self.f6.add(a[1], b[1]))
-
-    def sub(self, a, b):
-        return (self.f6.sub(a[0], b[0]), self.f6.sub(a[1], b[1]))
 
     def mul(self, a, b):
         f6 = self.f6
@@ -119,10 +164,68 @@ class Fp12:
         return (c0, c1)
 
     def sqr(self, a):
-        return self.mul(a, a)
+        """(a0 + a1 w)^2 = (a0 + a1)(a0 + v a1) - t - v t + 2 t w, t = a0 a1."""
+        f6 = self.f6
+        a0, a1 = a
+        t = f6.mul(a0, a1)
+        c0 = f6.sub(f6.mul(f6.add(a0, a1), f6.add(a0, f6.mul_by_v(a1))),
+                    f6.add(t, f6.mul_by_v(t)))
+        return (c0, f6.add(t, t))
 
-    def neg(self, a):
-        return (self.f6.neg(a[0]), self.f6.neg(a[1]))
+    def cyclotomic_sqr(self, a):
+        """a^2 for a of norm 1 over Fp6 and over Fp4 (after the final
+        exponentiation's easy part): Granger and Scott, "Faster squaring in
+        the cyclotomic subgroup of sixth degree extensions" (PKC 2010)."""
+        f = self.f2
+        xi = self.xi
+        (r0, r4, r3), (r2, r1, r5) = a
+
+        def sq4(x, y):
+            # (x + y s)^2 in Fp4 = Fp2[s]/(s^2 - xi)
+            t = f.mul(x, y)
+            return (f.sub(f.mul(f.add(x, y), f.add(f.mul(xi, y), x)),
+                          f.add(t, f.mul(xi, t))),
+                    f.add(t, t))
+
+        t0, t1 = sq4(r0, r1)
+        t2, t3 = sq4(r2, r3)
+        t4, t5 = sq4(r4, r5)
+
+        def minus(t, z):    # 3t - 2z
+            return f.add(f.add(t, t), f.sub(t, f.add(z, z)))
+
+        def plus(t, z):     # 3t + 2z
+            return f.add(f.add(t, t), f.add(t, f.add(z, z)))
+
+        return ((minus(t0, r0), minus(t2, r4), minus(t4, r3)),
+                (plus(f.mul(xi, t5), r2), plus(t1, r1), plus(t3, r5)))
+
+    def cyclotomic_pow(self, a, e: int):
+        """a^e, e > 0, for a of the cyclotomic subgroup."""
+        out = a
+        for bit in bin(e)[3:]:
+            out = self.cyclotomic_sqr(out)
+            if bit == "1":
+                out = self.mul(out, a)
+        return out
+
+    def mul_by_034(self, a, c0, c3, c4):
+        """a * (c0 + c3 w + c4 w^3): a D-type twist's line."""
+        f6 = self.f6
+        a0, a1 = a
+        t0 = f6.mul_by_fp2(a0, c0)
+        t1 = f6.mul_by_01(a1, c3, c4)
+        s = f6.mul_by_01(f6.add(a0, a1), self.f2.add(c0, c3), c4)
+        return (f6.add(t0, f6.mul_by_v(t1)), f6.sub(s, f6.add(t0, t1)))
+
+    def mul_by_014(self, a, c0, c1, c4):
+        """a * (c0 + c1 w^2 + c4 w^3): an M-type twist's line."""
+        f6 = self.f6
+        a0, a1 = a
+        t0 = f6.mul_by_01(a0, c0, c1)
+        t1 = f6.mul_by_1(a1, c4)
+        s = f6.mul_by_01(f6.add(a0, a1), c0, self.f2.add(c1, c4))
+        return (f6.add(t0, f6.mul_by_v(t1)), f6.sub(s, f6.add(t0, t1)))
 
     def conj(self, a):
         """Conjugation = Frobenius^6 (w -> -w)."""
@@ -155,42 +258,30 @@ class Fp12:
             e >>= 1
         return result
 
-    def frobenius(self, a):
-        """x -> x^p.  Element = sum_{i<3,j<2} c_{ij} v^i w^j;
+    def frobenius(self, a, k: int = 1):
+        """x -> x^(p^k).  Element = sum_{i<3,j<2} c_{ij} v^i w^j;
         pi(c v^i w^j) = conj(c) gamma_{2i+j} v^i w^j."""
         f2 = self.f2
-        (c00, c01, c02), (c10, c11, c12) = a
         g = self.gammas
-        d0 = (
-            f2.conj(c00),
-            f2.mul(f2.conj(c01), g[2]),
-            f2.mul(f2.conj(c02), g[4]),
-        )
-        d1 = (
-            f2.mul(f2.conj(c10), g[1]),
-            f2.mul(f2.conj(c11), g[3]),
-            f2.mul(f2.conj(c12), g[5]),
-        )
-        return (d0, d1)
+        for _ in range(k):
+            (c00, c01, c02), (c10, c11, c12) = a
+            a = (
+                (f2.conj(c00), f2.mul(f2.conj(c01), g[2]), f2.mul(f2.conj(c02), g[4])),
+                (f2.mul(f2.conj(c10), g[1]), f2.mul(f2.conj(c11), g[3]),
+                 f2.mul(f2.conj(c12), g[5])),
+            )
+        return a
 
-    # Fp2 scalar embedding: x in Fp2 -> Fp12
-    def from_fp2(self, x):
-        z = self.f2.zero()
-        return ((x, z, z), self.f6.zero())
 
-    def from_int(self, v):
-        return self.from_fp2(self.f2.from_int(v))
-
-    def mul_by_w_pow(self, a, k: int):
-        """Multiply by w^k, k in [0, 6); w^2 = v, w^6 = xi... via repeated w."""
-        out = a
-        for _ in range(k % 12):
-            out = self._mul_w(out)
-        return out
-
-    def _mul_w(self, a):
-        """a * w: (a0 + a1 w) w = a1 v + a0 w."""
-        return (self.f6.mul_by_v(a[1]), a[0])
+def _naf(k: int) -> list:
+    """Signed binary digits of k > 0 with no two adjacent non-zero, most
+    significant first."""
+    out = []
+    while k:
+        d = (2 - k % 4) if k & 1 else 0
+        out.append(d)
+        k = (k - d) >> 1
+    return out[::-1]
 
 
 class Pairing:
@@ -201,129 +292,141 @@ class Pairing:
         self.p = curve.fp.modulus
         self.r = curve.fr.modulus
         self.fp12 = Fp12(curve)
+        f2 = self.fp12.f2
+        self.three_b2 = f2.mul_int(curve.b2, 3)      # 3 b' of the twist
+        self.half = pow(2, -1, self.p)
         if curve.name == "bn254":
             self.x = 4965661367192848881
-            self.loop = 6 * self.x + 2
+            self.digits = _naf(6 * self.x + 2)[1:]
             self.twist = "D"  # untwist (x, y) -> (x w^2, y w^3)
         else:
             self.x = -0xD201000000010000
-            self.loop = abs(self.x)
+            self.digits = [int(b) for b in bin(-self.x)[3:]]
             self.twist = "M"  # untwist (x, y) -> (x / w^2, y / w^3)
-        # generic hard part exponent of the final exponentiation
-        p = self.p
-        self.hard_exp = (p**4 - p**2 + 1) // self.r
 
-    # ------------------------------------------------------------ untwist
+    # ---------------------------------------------------- steps on the twist
 
-    def untwist(self, Q):
-        """G2 point ((x0,x1),(y0,y1)) on the twist -> point over Fp12."""
-        if Q is None:
-            return None
-        f12 = self.fp12
-        x = f12.from_fp2(Q[0])
-        y = f12.from_fp2(Q[1])
+    def _double(self, T):
+        """T <- 2T, T = [X, Y, Z] homogeneous on the twist; returns the
+        tangent's (a, b, c), the line a yP + b xP + c (Costello, Lange and
+        Naehrig, PKC 2010, as arkworks' bls12/bn g2 prepare it)."""
+        f = self.fp12.f2
+        X, Y, Z = T
+        a = f.mul_int(f.mul(X, Y), self.half)
+        b = f.sqr(Y)
+        c = f.sqr(Z)
+        e = f.mul(self.three_b2, c)
+        f3 = f.add(f.add(e, e), e)
+        g = f.mul_int(f.add(b, f3), self.half)
+        h = f.sub(f.sqr(f.add(Y, Z)), f.add(b, c))
+        j = f.sqr(X)
+        e2 = f.sqr(e)
+        T[0] = f.mul(a, f.sub(b, f3))
+        T[1] = f.sub(f.sqr(g), f.add(f.add(e2, e2), e2))
+        T[2] = f.mul(b, h)
+        return f.neg(h), f.add(f.add(j, j), j), f.sub(e, b)
+
+    def _add(self, T, Q):
+        """T <- T + Q, Q affine on the twist; returns the chord's (a, b, c)."""
+        f = self.fp12.f2
+        X, Y, Z = T
+        qx, qy = Q
+        theta = f.sub(Y, f.mul(qy, Z))
+        lam = f.sub(X, f.mul(qx, Z))
+        c = f.sqr(theta)
+        d = f.sqr(lam)
+        e = f.mul(lam, d)
+        g = f.mul(X, d)
+        h = f.sub(f.add(e, f.mul(Z, c)), f.add(g, g))
+        T[0] = f.mul(lam, h)
+        T[1] = f.sub(f.mul(theta, f.sub(g, h)), f.mul(e, Y))
+        T[2] = f.mul(Z, e)
+        return lam, f.neg(theta), f.sub(f.mul(theta, qx), f.mul(lam, qy))
+
+    def _line(self, acc, coeffs, P):
+        """acc * (a yP + b xP + c), placed on the twist's slots."""
+        f12, f2 = self.fp12, self.fp12.f2
+        a, b, c = coeffs
+        ay, bx = f2.mul_int(a, P[1]), f2.mul_int(b, P[0])
         if self.twist == "D":
-            X = f12.mul_by_w_pow(x, 2)
-            Y = f12.mul_by_w_pow(y, 3)
-        else:
-            # divide by w^2 / w^3: w^-1 = w^11 / xi  (w^12 = xi^2 ... compute
-            # via inverse of w embedding)
-            w = f12._mul_w(f12.one())
-            w2i = f12.inv(f12.mul(w, w))
-            w3i = f12.mul(w2i, f12.inv(w))
-            X = f12.mul(x, w2i)
-            Y = f12.mul(y, w3i)
-        return (X, Y)
+            return f12.mul_by_034(acc, ay, bx, c)
+        return f12.mul_by_014(acc, c, bx, ay)
 
-    # ------------------------------------------------------- curve over Fp12
-
-    def _add_step(self, T, Q, P12):
-        """Affine chord step: returns (T+Q, line_{T,Q}(P))."""
-        f = self.fp12
-        (x1, y1), (x2, y2) = T, Q
-        xp, yp = P12
-        if f.eq(x1, x2) and f.eq(y1, y2):
-            return self._double_step(T, P12)
-        if f.eq(x1, x2):
-            # vertical line x - x1 evaluated at P
-            return None, f.sub(xp, x1)
-        lam = f.mul(f.sub(y2, y1), f.inv(f.sub(x2, x1)))
-        x3 = f.sub(f.sub(f.sqr(lam), x1), x2)
-        y3 = f.sub(f.mul(lam, f.sub(x1, x3)), y1)
-        line = f.sub(f.sub(yp, y1), f.mul(lam, f.sub(xp, x1)))
-        return (x3, y3), line
-
-    def _double_step(self, T, P12):
-        f = self.fp12
-        x1, y1 = T
-        xp, yp = P12
-        lam = f.mul(
-            f.mul(f.from_int(3), f.sqr(x1)),
-            f.inv(f.mul(f.from_int(2), y1)),
-        )
-        x3 = f.sub(f.sub(f.sqr(lam), x1), x1)
-        y3 = f.sub(f.mul(lam, f.sub(x1, x3)), y1)
-        line = f.sub(f.sub(yp, y1), f.mul(lam, f.sub(xp, x1)))
-        return (x3, y3), line
-
-    def _frob_point(self, Pt, k=1):
-        f = self.fp12
-        x, y = Pt
-        for _ in range(k):
-            x = f.frobenius(x)
-            y = f.frobenius(y)
-        return (x, y)
+    def _frob_twist(self, Q):
+        """The p-power Frobenius carried to the (D-type) twist."""
+        f2, g = self.fp12.f2, self.fp12.gammas
+        return (f2.mul(f2.conj(Q[0]), g[2]), f2.mul(f2.conj(Q[1]), g[3]))
 
     # ------------------------------------------------------------- miller
 
-    def miller_loop(self, P, Q):
-        """P in G1 (affine int pair), Q in G2 (affine Fp2 pairs)."""
-        f = self.fp12
-        if P is None or Q is None:
-            return f.one()
-        P12 = (f.from_int(P[0]), f.from_int(P[1]))
-        QU = self.untwist(Q)
-        T = QU
-        acc = f.one()
-        bits = bin(self.loop)[3:]  # skip MSB
-        for b in bits:
-            T, line = self._double_step(T, P12)
-            acc = f.mul(f.sqr(acc), line)
-            if b == "1":
-                T, line = self._add_step(T, QU, P12)
-                acc = f.mul(acc, line)
+    def multi_miller_loop(self, pairs):
+        """prod_i f_{Q_i}(P_i) over pairs [(G1 affine int pair, G2 affine
+        Fp2 pairs)], one squaring a step; a None point gives 1."""
+        f12, f2 = self.fp12, self.fp12.f2
+        work = [(P, Q, f2.neg(Q[1])) for P, Q in pairs if P is not None and Q is not None]
+        Ts = [[Q[0], Q[1], f2.one()] for _, Q, _ in work]
+        acc = f12.one()
+        if not work:
+            return acc
+        for i, d in enumerate(self.digits):
+            if i:
+                acc = f12.sqr(acc)
+            for (P, _, _), T in zip(work, Ts):
+                acc = self._line(acc, self._double(T), P)
+            if d:
+                for (P, Q, nqy), T in zip(work, Ts):
+                    acc = self._line(acc, self._add(T, Q if d > 0 else (Q[0], nqy)), P)
         if self.curve.name == "bn254":
             # two extra steps with Frobenius images of Q
-            Q1 = self._frob_point(QU, 1)
-            Q2 = self._frob_point(QU, 2)
-            Q2 = (Q2[0], f.neg(Q2[1]))
-            T, line = self._add_step(T, Q1, P12)
-            acc = f.mul(acc, line)
-            T, line = self._add_step(T, Q2, P12)
-            acc = f.mul(acc, line)
-        else:
-            if self.x < 0:
-                acc = f.conj(acc)
+            for (P, Q, _), T in zip(work, Ts):
+                Q1 = self._frob_twist(Q)
+                Q2 = self._frob_twist(Q1)
+                acc = self._line(acc, self._add(T, Q1), P)
+                acc = self._line(acc, self._add(T, (Q2[0], f2.neg(Q2[1]))), P)
+        elif self.x < 0:
+            acc = f12.conj(acc)
         return acc
+
+    def miller_loop(self, P, Q):
+        """P in G1 (affine int pair), Q in G2 (affine Fp2 pairs)."""
+        return self.multi_miller_loop([(P, Q)])
+
+    def _exp_x(self, a):
+        """a^x in the cyclotomic subgroup (a^-1 is its conjugate)."""
+        out = self.fp12.cyclotomic_pow(a, abs(self.x))
+        return self.fp12.conj(out) if self.x < 0 else out
 
     def final_exp(self, fval):
         f = self.fp12
         # easy part: f^((p^6-1)(p^2+1))
         t = f.mul(f.conj(fval), f.inv(fval))
-        t = f.mul(f.frobenius(f.frobenius(t)), t)
-        # hard part (generic, exact): t^((p^4 - p^2 + 1)/r)
-        return f.pow(t, self.hard_exp)
+        t = f.mul(f.frobenius(t, 2), t)
+        # hard part: t^((p^4 - p^2 + 1)/r), exactly, through x
+        mul, cpow, conj = f.mul, f.cyclotomic_pow, f.conj
+        if self.curve.name == "bn254":
+            tx = self._exp_x(t)
+            tx2 = self._exp_x(tx)
+            tx3 = self._exp_x(tx2)
+            # t^l2, t^l1 and t^l0: l1 = 1 - 6 (6x^3 + 3x^2 + 2x),
+            # l0 = l1 - 6 (2x^2 + x) - 3
+            l2 = mul(cpow(tx2, 6), t)
+            a = mul(mul(cpow(tx3, 6), cpow(tx2, 3)), cpow(tx, 2))
+            l1 = mul(conj(cpow(a, 6)), t)
+            b = mul(cpow(tx2, 2), tx)
+            l0 = mul(l1, conj(mul(cpow(b, 6), cpow(t, 3))))
+            return mul(mul(l0, f.frobenius(l1)), mul(f.frobenius(l2, 2), f.frobenius(t, 3)))
+        x = self.x
+        y = cpow(t, (x - 1) ** 2 // 3)
+        z = mul(self._exp_x(y), f.frobenius(y))                     # y^(x + p)
+        z = mul(mul(self._exp_x(self._exp_x(z)), f.frobenius(z, 2)), conj(z))  # ^(x^2 + p^2 - 1)
+        return mul(z, t)
 
     def pairing(self, P, Q):
         return self.final_exp(self.miller_loop(P, Q))
 
     def pairing_check(self, pairs) -> bool:
         """prod e(P_i, Q_i) == 1, pairs = [(G1 affine, G2 affine), ...]."""
-        f = self.fp12
-        acc = f.one()
-        for P, Q in pairs:
-            acc = f.mul(acc, self.miller_loop(P, Q))
-        return f.is_one(self.final_exp(acc))
+        return self.fp12.is_one(self.final_exp(self.multi_miller_loop(pairs)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,18 +5,26 @@ Host port of the reference module ``algoplonk_tpu/plonk/verify.py`` (which
 imports the jax prover and keys); this one is duck-typed on the Proof and
 VerifyingKey fields.
 
-Implements, in exact host integer arithmetic, the same verification algorithm
-the generated on-chain verifiers run (documented step-by-step in SURVEY.md
-section 3.5; reference templateLogicSigBN254.go:110-356), ending in the
-2-pairing product check.  Keeping this math identical to the templates means
-a proof accepted here is accepted on-chain.
+Checks, in exact host integer arithmetic, the equation the generated
+on-chain verifiers check (SURVEY.md section 3.5; reference
+templateLogicSigBN254.go:110-356), with the same Fiat-Shamir transcript and
+the same 2-pairing product, so a proof accepted here is accepted on-chain.
+It does not follow the templates call for call: each point the transcript
+or the pairing takes is one multi-scalar multiplication
+(``ops/msm.py:host_msm``, Jacobian, one inversion), four a proof, each in a
+``self_verify.msm`` span, and the product check is one multi-Miller loop
+(``host/pairing.py``) in a ``self_verify.pairing`` span.  An affine point
+is unique, so the points the transcript hashes are those of the templates'
+chains of scalar multiplications.
 """
 
 from __future__ import annotations
 
 from ..host import fp as hfp
 from ..host.pairing import pairing_engine
+from ..ops.msm import host_msm
 from ..plonk.transcript import Transcript, hash_fr_bsb22
+from ..utils import profiling
 
 
 class VerificationError(Exception):
@@ -32,6 +40,11 @@ def verify(vk, proof, public_inputs: list) -> bool:
     omega = vk.generator
     k1 = vk.coset_shift
     k2 = k1 * k1 % r
+
+    def msm(points, scalars):
+        """sum s_i P_i, scalars mod r; a None point is the identity."""
+        with profiling.span("self_verify.msm"):
+            return host_msm(curve, points, [s % r for s in scalars])
 
     if len(public_inputs) != vk.nb_public:
         raise VerificationError("wrong number of public inputs")
@@ -77,15 +90,6 @@ def verify(vk, proof, public_inputs: list) -> bool:
     s1t = u * v % r * o_ % r * alpha % r * proof.z_omega_at_z % r
     lin_at_z = (-(s1t + pi - alpha2_l1)) % r
 
-    # folded H (template :221-229)
-    zn2 = pow(zeta, n + 2, r)
-    folded_h = hfp.ec_mul(F1, proof.h2, zn2)
-    folded_h = hfp.ec_add(F1, folded_h, proof.h1)
-    folded_h = hfp.ec_mul(F1, folded_h, zn2)
-    folded_h = hfp.ec_add(F1, folded_h, proof.h0)
-    folded_h = hfp.ec_mul(F1, folded_h, zh_z)
-    folded_h = hfp.ec_neg(F1, folded_h)
-
     # linearization commitment (template :231-278)
     uu = proof.z_omega_at_z * beta % r
     vv = (proof.s1_at_z * beta + proof.l_at_z + gamma) % r
@@ -98,18 +102,15 @@ def verify(vk, proof, public_inputs: list) -> bool:
     ww2 = (betazeta * k2 + proof.o_at_z + gamma) % r
     s2c = (-(uu2 * vv2 % r * ww2 % r) * alpha + alpha2_l1) % r
 
-    lin_com = hfp.ec_mul(F1, vk.ql, proof.l_at_z)
-    lin_com = hfp.ec_add(F1, lin_com, hfp.ec_mul(F1, vk.qr, proof.r_at_z))
-    lin_com = hfp.ec_add(F1, lin_com, hfp.ec_mul(F1, vk.qo, proof.o_at_z))
-    lin_com = hfp.ec_add(
-        F1, lin_com, hfp.ec_mul(F1, vk.qm, proof.l_at_z * proof.r_at_z % r)
+    # one sum, the folded H -zh (h0 + zn2 h1 + zn2^2 h2) (template :221-229)
+    # through its scalars
+    zn2 = pow(zeta, n + 2, r)
+    lin_com = msm(
+        [vk.ql, vk.qr, vk.qo, vk.qm, vk.qk, *proof.bsb_commitments, vk.s3, proof.z_com,
+         proof.h0, proof.h1, proof.h2],
+        [proof.l_at_z, proof.r_at_z, proof.o_at_z, proof.l_at_z * proof.r_at_z, 1,
+         *proof.qcp_at_z, s1c, s2c, -zh_z, -zh_z * zn2, -zh_z * zn2 * zn2],
     )
-    lin_com = hfp.ec_add(F1, lin_com, vk.qk)
-    for com, qcp_z in zip(proof.bsb_commitments, proof.qcp_at_z):
-        lin_com = hfp.ec_add(F1, lin_com, hfp.ec_mul(F1, com, qcp_z))
-    lin_com = hfp.ec_add(F1, lin_com, hfp.ec_mul(F1, vk.s3, s1c))
-    lin_com = hfp.ec_add(F1, lin_com, hfp.ec_mul(F1, proof.z_com, s2c))
-    lin_com = hfp.ec_add(F1, lin_com, folded_h)
 
     # fold challenge + folded digest/claims (template :281-321)
     fold_d, fold_r = tr.fold(
@@ -117,9 +118,9 @@ def verify(vk, proof, public_inputs: list) -> bool:
         lin_at_z, proof.l_at_z, proof.r_at_z, proof.o_at_z,
         proof.s1_at_z, proof.s2_at_z, proof.qcp_at_z, proof.z_omega_at_z,
     )
-    digest = lin_com
     claims = lin_at_z
     r_acc = fold_r
+    points, scalars = [lin_com], [1]
     items = [
         (proof.l_com, proof.l_at_z),
         (proof.r_com, proof.r_at_z),
@@ -128,33 +129,25 @@ def verify(vk, proof, public_inputs: list) -> bool:
         (vk.s2, proof.s2_at_z),
     ] + list(zip(vk.qcp, proof.qcp_at_z))
     for com, val in items:
-        digest = hfp.ec_add(F1, digest, hfp.ec_mul(F1, com, r_acc))
+        points.append(com)
+        scalars.append(r_acc)
         claims = (claims + val * r_acc) % r
         r_acc = r_acc * fold_r % r
+    digest = msm(points, scalars)
 
     # second challenge + pairing inputs (template :323-356)
     _, rp = tr.multipoint(
         digest, proof.batch_opening, proof.z_com, proof.opening_z_omega,
         zeta, fold_r,
     )
-    quotient = hfp.ec_add(
-        F1, proof.batch_opening, hfp.ec_mul(F1, proof.opening_z_omega, rp)
-    )
-    digest = hfp.ec_add(F1, digest, hfp.ec_mul(F1, proof.z_com, rp))
+    quotient = msm([proof.batch_opening, proof.opening_z_omega], [1, rp])
     claims = (claims + proof.z_omega_at_z * rp) % r
-    claims_com = hfp.ec_mul(F1, vk.kzg_g1, claims)
-    digest = hfp.ec_add(F1, digest, hfp.ec_neg(F1, claims_com))
-
-    points_quotient = hfp.ec_mul(F1, proof.batch_opening, zeta)
-    zeta_omega = zeta * omega % r
-    rp_zw = rp * zeta_omega % r
-    points_quotient = hfp.ec_add(
-        F1, points_quotient, hfp.ec_mul(F1, proof.opening_z_omega, rp_zw)
+    digest = msm(
+        [digest, proof.z_com, vk.kzg_g1, proof.batch_opening, proof.opening_z_omega],
+        [1, rp, -claims, zeta, rp * zeta % r * omega],
     )
-    digest = hfp.ec_add(F1, digest, points_quotient)
-    quotient = hfp.ec_neg(F1, quotient)
 
-    eng = pairing_engine(curve.name)
-    return eng.pairing_check(
-        [(digest, vk.kzg_g2[0]), (quotient, vk.kzg_g2[1])]
-    )
+    with profiling.span("self_verify.pairing"):
+        return pairing_engine(curve.name).pairing_check(
+            [(digest, vk.kzg_g2[0]), (hfp.ec_neg(F1, quotient), vk.kzg_g2[1])]
+        )

@@ -148,6 +148,11 @@ def test_verify_tree_and_phase_seconds(circuit, recorder):
     # round 3's Fiat-Shamir step lies in its first sub-phase, r3.qk
     assert {sp.parent.name if sp.parent.name in ROUNDS else sp.parent.parent.name
             for sp in q.spans if sp.name == "transcript"} == set(ROUNDS[1:])
+    # the self-verify's four point sums and its one pairing check
+    verify_parts = [(sp.name, sp.parent.name) for sp in q.spans
+                    if sp.name.startswith("self_verify.")]
+    assert verify_parts == [("self_verify.msm", "self_verify")] * 4 + [
+        ("self_verify.pairing", "self_verify")]
 
 
 def test_recording_leaves_the_bytes_and_each_batch_tree_whole(circuit, recorder):

@@ -46,9 +46,10 @@ from .frontend.api import (
 )
 from .frontend import witness as witness_mod
 from .plonk import marshal as marshal_mod
+from .plonk import prove as prove_mod
 from .plonk import verify as verify_mod
 from .plonk.keys import ProvingKey, VerifyingKey
-from .plonk.prove import Proof, Prover
+from .plonk.prove import Proof
 from .setups.registry import test_only_setup
 from .setups.srs import SetupName, get as get_setup, run_setup
 from .utils import profiling
@@ -82,18 +83,8 @@ class CompiledCircuit:
 
     def verify(self, assignment) -> "VerifiedProof":
         """Prove + self-verify (every proof is checked with the native
-        verifier before export).  One request of ``utils/profiling.py``'s
-        recorder: spans ``verify`` (the root), ``solve``, ``prove`` and
-        ``self_verify``."""
-        with profiling.request("verify"):
-            prover = Prover(self.pk, self.ccs)
-            wit = witness_mod.solve(self.ccs, assignment, commitment_solver=prover.bsb_solver)
-            proof = prover.prove(wit)
-            with profiling.span("self_verify"):
-                ok = verify_mod.verify(self.vk, proof, wit.public_values)
-            if not ok:
-                raise RuntimeError("proof failed native verification")
-            return VerifiedProof(proof, wit, self.curve, dict(prover.phase_seconds))
+        verifier before export): one ``prove_request``."""
+        return prove_request(self, assignment)
 
     def write_puyapy_verifier(self, filepath: str, output_type: "ContractType"):
         """Emit PuyaPy verifier source (reference algoplonk.go:63-76)."""
@@ -125,6 +116,26 @@ class VerifiedProof:
         if public_inputs_path:
             with open(public_inputs_path, "wb") as fh:
                 fh.write(self.marshal_public_inputs())
+
+
+def prove_request(cc: CompiledCircuit, assignment, pk: ProvingKey | None = None, rng=None,
+                  self_verify: bool = True, name: str = "proof") -> VerifiedProof:
+    """Solve and prove one assignment on ``pk`` (default ``cc.pk``) with a
+    Prover of ``rng``, then (``self_verify``) check the proof natively or
+    raise "<name> failed native verification".  One request of
+    ``utils/profiling.py``'s recorder: spans ``verify`` (the root),
+    ``solve``, ``prove`` and ``self_verify``.  CompiledCircuit.verify and
+    ``prove_batch``'s workers run it."""
+    with profiling.request("verify"):
+        prover = prove_mod.Prover(cc.pk if pk is None else pk, cc.ccs, rng=rng)
+        wit = witness_mod.solve(cc.ccs, assignment, commitment_solver=prover.bsb_solver)
+        proof = prover.prove(wit)
+        if self_verify:
+            with profiling.span("self_verify"):
+                ok = verify_mod.verify(cc.vk, proof, wit.public_values)
+            if not ok:
+                raise RuntimeError(f"{name} failed native verification")
+        return VerifiedProof(proof, wit, cc.curve, dict(prover.phase_seconds))
 
 
 def compile(circuit_cls, curve: CurveParams, setup_name: SetupName,

@@ -13,10 +13,10 @@ others' device work, as far as the interpreter lock lets the threads run.
 Each distinct device gets one copy of the proving key, made before the
 workers start, and the devices are synchronised then, so that the keys,
 written on the default stream, are complete before any worker's stream
-reads them.  Each proof is one request of ``utils/profiling.py``'s
-recorder, its tree built by its worker's thread, as
-``CompiledCircuit.verify`` builds one; the launch counters of ``ops/`` are
-exact under the workers' threads.
+reads them.  Each proof is the package's ``prove_request``, as in
+``CompiledCircuit.verify``: one request of ``utils/profiling.py``'s
+recorder, its tree built by its worker's thread; the launch counters of
+``ops/`` are exact under the workers' threads.
 """
 
 from __future__ import annotations
@@ -38,11 +38,7 @@ def prove_batch(cc, assignments, devices=None, self_verify: bool = True, rng=Non
     native verifier raises RuntimeError.  ``rng`` follows the Prover's
     semantics (None: blinding from ``secrets``; False: none, so every proof
     is byte-equal to the sequential prover's)."""
-    from .. import VerifiedProof
-    from ..frontend import witness as witness_mod
-    from ..plonk import verify as verify_mod
-    from ..plonk.prove import Prover
-    from ..utils import profiling
+    from .. import prove_request
 
     if devices is None:
         if not torch.cuda.is_available():
@@ -60,18 +56,6 @@ def prove_batch(cc, assignments, devices=None, self_verify: bool = True, rng=Non
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def one(i, dev):
-        with profiling.request("verify"):
-            prover = Prover(keys[dev], cc.ccs, rng=rng)
-            wit = witness_mod.solve(cc.ccs, assignments[i], commitment_solver=prover.bsb_solver)
-            proof = prover.prove(wit)
-            if self_verify:
-                with profiling.span("self_verify"):
-                    ok = verify_mod.verify(cc.vk, proof, wit.public_values)
-                if not ok:
-                    raise RuntimeError(f"proof {i} failed native verification")
-            return VerifiedProof(proof, wit, cc.curve, dict(prover.phase_seconds))
-
     n_workers = min(len(devices), len(assignments))
 
     def worker(w):
@@ -79,7 +63,9 @@ def prove_batch(cc, assignments, devices=None, self_verify: bool = True, rng=Non
         stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
         with on_device(dev), ctx:
-            out = [(i, one(i, dev)) for i in range(w, len(assignments), n_workers)]
+            out = [(i, prove_request(cc, assignments[i], keys[dev], rng=rng,
+                                     self_verify=self_verify, name=f"proof {i}"))
+                   for i in range(w, len(assignments), n_workers)]
         if stream is not None:
             stream.synchronize()
         return out

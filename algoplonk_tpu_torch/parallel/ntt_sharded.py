@@ -31,7 +31,14 @@ from ..fields.params import CURVES, domain_generator
 from ..ops.field import FieldOps, field_ops
 from ..ops.ntt import _bit_reverse_perm, power_table
 from ..ops.ntt_kernels import ntt_pass, stage_twiddles
-from .mesh import Mesh, all_to_all, on_device
+from ..ops.poly import pad_rows
+from .mesh import Mesh, all_gather, all_to_all, on_device
+from .msm_sharded import sharded_commit
+
+
+def four_step_factors(log_n: int) -> tuple[int, int]:
+    """(n1, n2) of a size-2^log_n transform."""
+    return 1 << (log_n // 2), 1 << (log_n - log_n // 2)
 
 
 def power_grid(f: FieldOps, base: int, rows, ncols: int, scale: int = 1):
@@ -72,8 +79,7 @@ def sharded_ntt_fn(curve_name: str, mesh: Mesh, axis: str, log_n: int,
     curve = CURVES[curve_name]
     r = curve.fr.modulus
     n = 1 << log_n
-    log_n1 = log_n // 2
-    n1, n2 = 1 << log_n1, 1 << (log_n - log_n1)
+    n1, n2 = four_step_factors(log_n)
     d = mesh.shape[axis]
     if n1 % d or n2 % d:
         raise ValueError(f"the four-step factors {n1} x {n2} do not split over {d} shards")
@@ -144,6 +150,38 @@ def sharded_ntt_fn(curve_name: str, mesh: Mesh, axis: str, log_n: int,
         return [z.permute(2, 0, 1, 3).reshape(rows1, n1, z.shape[-1]) for z in zs]
 
     return fn, (n1, n2)
+
+
+class Sharding:
+    """A Prover's commits and transforms over ``mesh``'s axis, results on
+    ``device`` (the key's).  ``ntt_hits`` counts the transforms sharded."""
+
+    def __init__(self, curve, mesh: Mesh, axis: str, device):
+        self.curve, self.mesh, self.axis, self.device = curve, mesh, axis, device
+        self._msm_fns, self._ntt_fns, self.ntt_hits = {}, {}, 0
+
+    def commit(self, points, mont) -> tuple:
+        """``sharded_commit`` with this mesh's functions kept."""
+        return sharded_commit(self.curve, self.mesh, self.axis, points, mont, self._msm_fns)
+
+    def transform(self, vec, log_sz: int, inverse: bool, coset_shift: int | None = None):
+        """The (i)NTT of size 2^log_sz of ``vec`` [m, W] (coefficients, or
+        for the inverse natural-order evaluations), zero-padded to the size,
+        in natural order on ``device``; None where the four-step factors
+        do not divide over the shards."""
+        n1, n2 = four_step_factors(log_sz)
+        d = self.mesh.shape[self.axis]
+        if n1 % d or n2 % d:
+            return None
+        key = (log_sz, inverse, coset_shift)
+        if key not in self._ntt_fns:
+            self._ntt_fns[key] = sharded_ntt_fn(self.curve.name, self.mesh, self.axis, log_sz,
+                                                inverse, coset_shift)[0]
+        W = vec.shape[-1]
+        x = pad_rows(vec, n1 * n2).reshape(n1, n2, W).transpose(0, 1)   # [j2, j1]
+        out = all_gather(self._ntt_fns[key](self.mesh.shard(x, 0)), self.device)
+        self.ntt_hits += 1
+        return out.reshape(n1 * n2, W)
 
 
 def reference_layout(coeffs_ints, n1: int, n2: int):

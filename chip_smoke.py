@@ -572,6 +572,20 @@ def forced_threads(T: int, chooser: str = "scan_threads"):
         setattr(ck, chooser, saved)
 
 
+@contextlib.contextmanager
+def quotient_path(lm: str):
+    """Round 3 takes the four-step quotient (lm "1") or the batch-major one
+    ("0") at any size: prove.LM_MIN_LOG set to 0, or above any coset."""
+    from algoplonk_tpu_torch.plonk import prove as prove_mod
+
+    saved = prove_mod.LM_MIN_LOG
+    prove_mod.LM_MIN_LOG = 0 if lm == "1" else 64
+    try:
+        yield
+    finally:
+        prove_mod.LM_MIN_LOG = saved
+
+
 def every_thread_count(torch, name, kern, plain, choices, chooser, picked, suffix,
                        device=None):
     """``kern`` (one launch of kernel ``name``) at every thread count per
@@ -1392,16 +1406,13 @@ def quotient_paths(torch, apt, cc, circuit, tag, reps: int = 5):
         raise ValueError("one witness serves every prover only without BSB22 commitments")
     wit = witness_mod.solve(cc.ccs, circuit)
     r3, blobs = {"0": [], "1": []}, {}
-    try:
-        for i in range(reps + 1):
-            for lm in ("0", "1") if i % 2 == 0 else ("1", "0"):
-                os.environ["AP_QUOTIENT_LM"] = lm
+    for i in range(reps + 1):
+        for lm in ("0", "1") if i % 2 == 0 else ("1", "0"):
+            with quotient_path(lm):
                 prover = Prover(cc.pk, cc.ccs, rng=False)
                 blobs[lm] = marshal_proof(cc.curve, prover.prove(wit))
-                if i:
-                    r3[lm].append(prover.phase_seconds["r3"])
-    finally:
-        os.environ.pop("AP_QUOTIENT_LM", None)
+            if i:
+                r3[lm].append(prover.phase_seconds["r3"])
     med = {k: sorted(v)[len(v) // 2] for k, v in r3.items()}
     log(f"{tag} round 3 by quotient path, Prover(rng=False), warm, {reps} each alternating (s): "
         f"four-step {json.dumps([round(t, 4) for t in r3['1']])} (median {med['1']:.4f}), "
@@ -1805,9 +1816,9 @@ def sharded_prove_check(torch, mesh, counts, cc, circuit, tag):
         + json.dumps({k: round(v, 4) for k, v in prover.phase_seconds.items()})
         + f"; single device {t_one:.2f} s, phases (s): "
         + json.dumps({k: round(v, 4) for k, v in one.phase_seconds.items()})
-        + f"; sharded NTTs {prover.sharded_ntt_hits} of {expect}; bytes equal: {got == want}; "
+        + f"; sharded NTTs {prover.sharding.ntt_hits} of {expect}; bytes equal: {got == want}; "
         f"native verify: {ok}; launches: {launched}; peak device memory {peak / 2**30:.3f} GiB")
-    if got != want or not ok or prover.sharded_ntt_hits != expect:
+    if got != want or not ok or prover.sharding.ntt_hits != expect:
         raise AssertionError(f"{tag} the sharded prove disagrees with the single-device prove")
     warm = Prover(cc.pk, cc.ccs, rng=False, mesh=mesh)
     n_kernels, by_type, busy, wall = profile_device(torch, lambda: warm.prove(wit))
@@ -2058,19 +2069,18 @@ def gpu_equals_cpu(torch, apt, curve, setup, P, assignment, public, cpu_host_msm
             M.HOST_MSM_MAX = 1 << 62 if d.type == "cpu" and cpu_host_msm else 0
             small = apt.compile(P, curve, setup, device=d)
             for lm in ("0", "1"):
-                os.environ["AP_QUOTIENT_LM"] = lm
                 before = nk.LAUNCHES["ntt_pass"]
-                prover = Prover(small.pk, small.ccs, rng=False)
-                wit = witness_mod.solve(small.ccs, P(**assignment),
-                                        commitment_solver=prover.bsb_solver)
-                proof = prover.prove(wit)
+                with quotient_path(lm):
+                    prover = Prover(small.pk, small.ccs, rng=False)
+                    wit = witness_mod.solve(small.ccs, P(**assignment),
+                                            commitment_solver=prover.bsb_solver)
+                    proof = prover.prove(wit)
                 k9[d.type, lm] = nk.LAUNCHES["ntt_pass"] - before
                 if not V.verify(small.vk, proof, public):
                     raise AssertionError(f"small proof on {d} failed verification")
                 blobs[d.type, lm] = marshal_proof(curve, proof)
     finally:
         M.HOST_MSM_MAX = host_max
-        os.environ.pop("AP_QUOTIENT_LM", None)
     same = len(set(blobs.values())) == 1
     log(f"[{curve.name}] {P.__name__}, device MSM: GPU proof == CPU proof, both "
         f"quotient paths: {same}; K9 launches by (device, path): {k9}")
@@ -2091,7 +2101,7 @@ def range_commit_path(torch, apt, rng, reset_counts):
     per four-step transform (15 lifts, two of them the commitment's, and
     the 4n iNTT) and no ntt_stage.  Its emitted logicsig and contract run
     under the AVM mock on its proof (emit_and_run), and two
-    Prover(rng=False) proves, AP_QUOTIENT_LM=0 then 1, give equal bytes.
+    Prover(rng=False) proves, batch-major then four-step, give equal bytes.
     Returns the first prove + self-verify's launches by (kernel, width) and
     by (kernel, field)."""
     from algoplonk_tpu_torch.frontend import witness as witness_mod
@@ -2156,19 +2166,16 @@ def range_commit_path(torch, apt, rng, reset_counts):
 
     budgets = emit_and_run(apt, cc, vp, tag)
     blobs = {}
-    try:
-        for lm in ("0", "1"):
-            os.environ["AP_QUOTIENT_LM"] = lm
+    for lm in ("0", "1"):
+        with quotient_path(lm):
             prover = Prover(cc.pk, cc.ccs, rng=False)
             wit = witness_mod.solve(cc.ccs, circuit, commitment_solver=prover.bsb_solver)
             proof = prover.prove(wit)
-            if not V.verify(cc.vk, proof, [values["total"]]):
-                raise AssertionError(f"{tag} the Prover(rng=False) proof failed verification")
-            blobs[lm] = marshal_proof(bn, proof)
-            log(f"{tag} Prover(rng=False), AP_QUOTIENT_LM={lm}: phases (s): "
-                + json.dumps({k: round(v, 4) for k, v in prover.phase_seconds.items()}))
-    finally:
-        os.environ.pop("AP_QUOTIENT_LM", None)
+        if not V.verify(cc.vk, proof, [values["total"]]):
+            raise AssertionError(f"{tag} the Prover(rng=False) proof failed verification")
+        blobs[lm] = marshal_proof(bn, proof)
+        log(f"{tag} Prover(rng=False), four-step quotient {lm == '1'}: phases (s): "
+            + json.dumps({k: round(v, 4) for k, v in prover.phase_seconds.items()}))
     log(f"{tag} opcode budgets {budgets}; proof bytes through both quotient paths equal: "
         f"{blobs['0'] == blobs['1']}")
     if blobs["0"] != blobs["1"]:
@@ -2240,9 +2247,6 @@ def main() -> int:
     rng = random.Random(0xA1607)
     dev = torch.device("cuda")
     bound = Bound(torch, max_sm_mhz)
-    # each path takes the quotient the default rule gives its size
-    for var in ("AP_QUOTIENT_LM", "AP_NTT_LM_MIN_LOG"):
-        os.environ.pop(var, None)
 
     def reset_counts():
         ck.reset_launch_counts()
@@ -2403,15 +2407,15 @@ def main() -> int:
         raise AssertionError(f"the traced 2^{LM_LOG_N} prove launched K9 {k9} times")
     blobs, r3 = {}, {}
     for lm in ("1", "0"):
-        os.environ["AP_QUOTIENT_LM"] = lm
-        prover = Prover(cc.pk, cc.ccs, rng=False)
-        wit = witness_mod.solve(cc.ccs, SquareChain(x=x, y=y), commitment_solver=prover.bsb_solver)
-        proof = prover.prove(wit)
+        with quotient_path(lm):
+            prover = Prover(cc.pk, cc.ccs, rng=False)
+            wit = witness_mod.solve(cc.ccs, SquareChain(x=x, y=y),
+                                    commitment_solver=prover.bsb_solver)
+            proof = prover.prove(wit)
         blobs[lm] = marshal_proof(apt.BN254, proof)
         r3[lm] = prover.phase_seconds["r3"]
-        log(f"[2^{LM_LOG_N}] Prover(rng=False), AP_QUOTIENT_LM={lm}: phases (s): "
+        log(f"[2^{LM_LOG_N}] Prover(rng=False), four-step quotient {lm == '1'}: phases (s): "
             + json.dumps({k: round(v, 4) for k, v in prover.phase_seconds.items()}))
-    os.environ.pop("AP_QUOTIENT_LM", None)
     if not V.verify(cc.vk, proof, [y]):
         raise AssertionError("the unblinded 2^17 proof failed verification")
     log(f"[2^{LM_LOG_N}] round 3: four-step {r3['1']:.3f} s, batch-major {r3['0']:.3f} s; "

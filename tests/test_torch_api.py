@@ -48,13 +48,15 @@ def test_tampered_proof_rejected(port_pyth):
         assert not V.verify(vk, bad, PUBLIC), field
 
 
-def test_compile_verify_export(port_pyth, tmp_path):
+def test_compile_verify_export(port_pyth, tmp_path, monkeypatch):
     """The user's path: compile, verify (prove blinded + self-verify),
-    marshal and export."""
+    marshal and export.  A proof that the self-verify rejects (here one
+    made for other public inputs) raises."""
     vp = port_pyth.verify(TPyth(**ASSIGN))
     blob = vp.marshal_proof()
     assert len(blob) == expected_proof_len(apt.BN254, 0) == 24 * 32
-    assert blob != marshal_proof(apt.BN254, prove(port_pyth, False))  # blinded
+    unblinded = prove(port_pyth, False)
+    assert blob != marshal_proof(apt.BN254, unblinded)  # blinded
     assert set(vp.phase_seconds) == {"r1", "r2", "r3", "r4", "r5"}
     assert vp.marshal_public_inputs() == b"".join(v.to_bytes(32, "big") for v in PUBLIC)
     proof_path, pub_path = tmp_path / "proof.bin", tmp_path / "public.bin"
@@ -63,6 +65,9 @@ def test_compile_verify_export(port_pyth, tmp_path):
     assert pub_path.read_bytes() == vp.marshal_public_inputs()
     with pytest.raises(ValueError, match="not satisfied"):
         port_pyth.verify(TPyth(a=3, b=4, c=6))
+    monkeypatch.setattr(Prover, "prove", lambda self, wit: unblinded)
+    with pytest.raises(RuntimeError, match="^proof failed native verification$"):
+        port_pyth.verify(TPyth(a=5, b=12, c=13))
 
 
 def test_compile_rejects_mismatched_setup():

@@ -34,6 +34,7 @@ from algoplonk_tpu_torch.ops import ntt_kernels as nk
 from algoplonk_tpu_torch.ops.curve import curve_ops
 from algoplonk_tpu_torch.ops.field import field_ops, plain_add, plain_mul, plain_neg, plain_sub
 from algoplonk_tpu_torch.ops.ntt import ntt_plan
+from algoplonk_tpu_torch.plonk import prove as prove_mod
 from algoplonk_tpu_torch.plonk import verify as V
 from algoplonk_tpu_torch.plonk.marshal import marshal_proof
 from algoplonk_tpu_torch.plonk.prove import Prover
@@ -910,8 +911,8 @@ def test_small_proof_gpu_equals_cpu(cuda_device, monkeypatch, curve):
     blobs = []
     for device in (cuda_device, torch.device("cpu")):
         cc = apt.compile(P, c, setup_name, device=device)
-        for lm in ("0", "1"):
-            monkeypatch.setenv("AP_QUOTIENT_LM", lm)
+        for min_log in (64, 0):     # above any coset: batch-major; 0: four-step
+            monkeypatch.setattr(prove_mod, "LM_MIN_LOG", min_log)
             prover = Prover(cc.pk, cc.ccs, rng=False)
             wit = witness_mod.solve(cc.ccs, P(a=3, b=4, c=5), commitment_solver=prover.bsb_solver)
             proof = prover.prove(wit)

@@ -35,6 +35,7 @@ import algoplonk_tpu_torch as apt
 from algoplonk_tpu_torch.chain import algopy_mock as mock
 from algoplonk_tpu_torch.frontend import witness as witness_mod
 from algoplonk_tpu_torch.ops import msm as M
+from algoplonk_tpu_torch.plonk import prove as prove_mod
 from algoplonk_tpu_torch.plonk import verify as V
 from algoplonk_tpu_torch.plonk.keys import proving_key_from_jax
 from algoplonk_tpu_torch.plonk.marshal import expected_proof_len, marshal_proof
@@ -169,14 +170,14 @@ def test_merkle_circuit_bytes_match_jax(monkeypatch):
 @pytest.fixture(scope="module")
 def range4():
     """RangeCommit(4) compiled on the CPU, its Prover(rng=False) proofs
-    through each quotient path, by AP_QUOTIENT_LM, and its public-input
-    blob."""
+    through each quotient path ("0" batch-major, "1" four-step), forced by
+    prove.LM_MIN_LOG (64: above any coset), and its public-input blob."""
     TRange = range_commit(apt, RANGE_N)
     cc = apt.compile(TRange, BN254, apt.SetupName.TEST_ONLY_BN254, device="cpu")
     proofs = {}
     with pytest.MonkeyPatch.context() as mp:
-        for lm in ("0", "1"):
-            mp.setenv("AP_QUOTIENT_LM", lm)
+        for lm, min_log in (("0", 64), ("1", 0)):
+            mp.setattr(prove_mod, "LM_MIN_LOG", min_log)
             prover = Prover(cc.pk, cc.ccs, rng=False)
             assert prover._use_lm_quotient() == (lm == "1")
             wit = witness_mod.solve(cc.ccs, TRange(**range_values(RANGE_N)),

@@ -9,7 +9,9 @@ row p against the reference's column p), or proof bytes.  The reference
 proves once per quotient path (``reference``), with its table eviction
 taken at every size (AP_QUOTIENT_SYNC_MIN_LOG=0; the port's
 ``EVICT_MIN_LOG`` set to 0 to match) and under AP_PROVE_PROFILE=1, and the
-port's prove tests share its bytes and its phase names."""
+port's prove tests share its bytes and its phase names.  The reference's
+path is forced by its AP_QUOTIENT_LM (``FOUR_STEP``, ``BATCH_MAJOR``), the
+port's by its constant ``LM_MIN_LOG`` (0, or above any coset)."""
 
 import contextlib
 import io
@@ -42,8 +44,9 @@ BN254 = apt.BN254
 R = BN254.fr.modulus
 G = BN254.coset_shift
 PHASE = re.compile(r"^  prove phase (.+?): \d+\.\d\ds(?:  \[hbm .*\])?$", re.M)
-FOUR_STEP = {"AP_QUOTIENT_LM": "1"}
+FOUR_STEP = {"AP_QUOTIENT_LM": "1"}     # the reference's variables
 BATCH_MAJOR = {"AP_QUOTIENT_LM": "0"}
+NEVER = 64                                 # an LM_MIN_LOG above any coset
 EVICT_ALL = {"AP_QUOTIENT_SYNC_MIN_LOG": "0"}   # the reference's threshold
 EVICT_MIN_LOG = prove_mod.EVICT_MIN_LOG           # the port's
 
@@ -141,16 +144,18 @@ def port_circuit():
     return apt.compile(TPyth, BN254, apt.SetupName.TEST_ONLY_BN254, device="cpu"), TPyth
 
 
-def port_prove(cc, TPyth, monkeypatch, env: dict, check_path: bool = False,
-               evict_all: bool = False) -> bytes:
-    for k in ("AP_QUOTIENT_LM", "AP_PROVE_PROFILE"):
-        monkeypatch.delenv(k, raising=False)
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
+def port_prove(cc, TPyth, monkeypatch, four_step: bool, check_path: bool = False,
+               evict_all: bool = False, profile: bool = False) -> bytes:
+    """The port's Prover(rng=False) proof bytes through the quotient path
+    ``four_step`` picks, with AP_PROVE_PROFILE=1 where ``profile``."""
+    monkeypatch.delenv("AP_PROVE_PROFILE", raising=False)
+    if profile:
+        monkeypatch.setenv("AP_PROVE_PROFILE", "1")
+    monkeypatch.setattr(prove_mod, "LM_MIN_LOG", 0 if four_step else NEVER)
     monkeypatch.setattr(prove_mod, "EVICT_MIN_LOG", 0 if evict_all else EVICT_MIN_LOG)
     prover = Prover(cc.pk, cc.ccs, rng=False)
     if check_path:
-        assert prover._use_lm_quotient() == (env["AP_QUOTIENT_LM"] == "1")
+        assert prover._use_lm_quotient() == four_step
     wit = witness_mod.solve(cc.ccs, TPyth(a=3, b=4, c=5), commitment_solver=prover.bsb_solver)
     proof = prover.prove(wit)
     assert V.verify(cc.vk, proof, [3, 4])
@@ -162,8 +167,8 @@ def test_lm_quotient_proof_matches_jax_and_batch_major(reference, port_circuit, 
     _quotient_lm proof bytes, and the port's own _quotient proof bytes."""
     cc, TPyth = port_circuit
     want = reference["four_step"][0]
-    for flag in ("1", "0"):
-        assert port_prove(cc, TPyth, monkeypatch, {"AP_QUOTIENT_LM": flag}, True) == want
+    for four_step in (True, False):
+        assert port_prove(cc, TPyth, monkeypatch, four_step, True) == want
 
 
 @pytest.mark.parametrize("max_c", [4, 2])
@@ -183,7 +188,7 @@ def test_split_quotient_proof_matches_jax(reference, port_circuit, monkeypatch, 
 
     monkeypatch.setattr(nk, "plain_ntt_stage", counted)
     monkeypatch.setattr(nk, "MAX_C", max_c)
-    assert port_prove(cc, TPyth, monkeypatch, FOUR_STEP) == reference["four_step"][0]
+    assert port_prove(cc, TPyth, monkeypatch, True) == reference["four_step"][0]
     assert {C for C, _ in halves} == ({8} if max_c == 4 else {4, 8})
     assert all(h >= max_c for _, h in halves)
 
@@ -202,9 +207,9 @@ def test_evicting_quotient_matches_reference_and_no_eviction(reference, port_cir
         keep(plan, inverse)
 
     monkeypatch.setattr(nk.FourStepPlan, "drop_tables", spy)
-    evicting = port_prove(cc, TPyth, monkeypatch, FOUR_STEP, evict_all=True)
+    evicting = port_prove(cc, TPyth, monkeypatch, True, evict_all=True)
     assert drops == [True, False]
-    kept = port_prove(cc, TPyth, monkeypatch, FOUR_STEP)
+    kept = port_prove(cc, TPyth, monkeypatch, True)
     assert drops == [True, False]   # the default threshold (a coset of 2^21) is not reached
     assert evicting == reference["four_step"][0]
     assert kept == evicting
@@ -216,37 +221,38 @@ def test_profile_phase_names_match_reference(reference, port_circuit, monkeypatc
     in its order (the seven r3 sub-phases on the four-step path only), and
     its bytes stay the reference's; unset, it prints nothing."""
     cc, TPyth = port_circuit
-    env = FOUR_STEP if path == "four_step" else BATCH_MAJOR
+    four_step = path == "four_step"
     want_bytes, want_names = reference[path]
-    assert len([n for n in want_names if n.startswith("r3.")]) == (8 if path == "four_step" else 1)
+    assert len([n for n in want_names if n.startswith("r3.")]) == (8 if four_step else 1)
     capfd.readouterr()
-    evict_all = path == "four_step"
-    assert port_prove(cc, TPyth, monkeypatch, {**env, "AP_PROVE_PROFILE": "1"},
-                      evict_all=evict_all) == want_bytes
+    assert port_prove(cc, TPyth, monkeypatch, four_step, evict_all=four_step,
+                      profile=True) == want_bytes
     assert PHASE.findall(capfd.readouterr().err) == want_names
-    assert port_prove(cc, TPyth, monkeypatch, env, evict_all=evict_all) == want_bytes
+    assert port_prove(cc, TPyth, monkeypatch, four_step, evict_all=four_step) == want_bytes
     assert capfd.readouterr().err == ""
 
 
 def test_lm_quotient_path_rule(monkeypatch):
-    """The reference's rule: forced by AP_QUOTIENT_LM, otherwise from a
-    coset of 2^AP_NTT_LM_MIN_LOG (default 19) on."""
+    """The reference's rule at its default: the four-step quotient from a
+    coset of 2^LM_MIN_LOG (19) on, read at each call.  The reference's
+    variables do not move the port."""
     cc = apt.compile(pythagorean(apt), BN254, apt.SetupName.TEST_ONLY_BN254, device="cpu")
     prover = Prover(cc.pk, cc.ccs, rng=False)
     log4 = cc.pk.log_n + 2
-    monkeypatch.delenv("AP_QUOTIENT_LM", raising=False)
-    monkeypatch.delenv("AP_NTT_LM_MIN_LOG", raising=False)
+    assert prove_mod.LM_MIN_LOG == 19
     assert not prover._use_lm_quotient()
-    monkeypatch.setenv("AP_NTT_LM_MIN_LOG", str(log4))
+    monkeypatch.setattr(prove_mod, "LM_MIN_LOG", log4)
     assert prover._use_lm_quotient()
-    monkeypatch.setenv("AP_NTT_LM_MIN_LOG", str(log4 + 1))
+    monkeypatch.setattr(prove_mod, "LM_MIN_LOG", log4 + 1)
     assert not prover._use_lm_quotient()
+    monkeypatch.undo()
     monkeypatch.setenv("AP_QUOTIENT_LM", "1")
-    assert prover._use_lm_quotient()
+    monkeypatch.setenv("AP_NTT_LM_MIN_LOG", "0")
+    assert not Prover(cc.pk, cc.ccs, rng=False)._use_lm_quotient()
 
 
 def test_bsb22_prove_verify_through_four_step(monkeypatch):
-    monkeypatch.setenv("AP_QUOTIENT_LM", "1")
+    monkeypatch.setattr(prove_mod, "LM_MIN_LOG", 0)
     TOne = one_commit(apt)
     cc = apt.compile(TOne, BN254, apt.SetupName.TEST_ONLY_BN254, device="cpu")
     vp = cc.verify(TOne(x=49, y=7))

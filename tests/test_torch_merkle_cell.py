@@ -18,6 +18,7 @@ from algoplonk_tpu_torch.frontend.api import compile_circuit
 from algoplonk_tpu_torch.host import mimc as hm
 from algoplonk_tpu_torch.ops import ntt as ntt_mod
 from algoplonk_tpu_torch.plonk.marshal import marshal_proof
+from algoplonk_tpu_torch.plonk import prove as prove_mod
 from algoplonk_tpu_torch.plonk.prove import Prover
 from algoplonk_tpu_torch.utils import profiling
 from benchmark.core import check as check_mod
@@ -133,8 +134,9 @@ def proved():
             return transform(plan, a, inverse)
 
         mp.setattr(ntt_mod.NttPlan, "_transform", counted)
-        for path, lm in (("batch_major", "0"), ("four_step", "1")):
-            mp.setenv("AP_QUOTIENT_LM", lm)
+        # LM_MIN_LOG 64: above any coset
+        for path, min_log in (("batch_major", 64), ("four_step", 0)):
+            mp.setattr(prove_mod, "LM_MIN_LOG", min_log)
             proofs = []
             for on in (False, True):
                 calls.clear()

@@ -163,10 +163,12 @@ def test_cuda_without_card_raises(monkeypatch, what):
             prove_batch(None, [])
 
 
-def test_prove_batch_matches_sequential():
+def test_prove_batch_matches_sequential(monkeypatch):
     """Four witnesses over two CPU workers, blinding off: each proof is the
     sequential prover's byte for byte, in assignment order, with its
-    public inputs."""
+    public inputs.  A proof that the self-verify rejects (here one made for
+    other public inputs) raises, naming its index; without the self-verify
+    it is returned."""
     Pyth = pythagorean(apt)
     cc = apt.compile(Pyth, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device="cpu")
     triples = [(3, 4, 5), (5, 12, 13), (8, 15, 17), (7, 24, 25)]
@@ -179,3 +181,9 @@ def test_prove_batch_matches_sequential():
         prover = Prover(cc.pk, cc.ccs, rng=False)
         wit = witness_mod.solve(cc.ccs, Pyth(a=a, b=b, c=c), commitment_solver=prover.bsb_solver)
         assert marshal_proof(apt.BN254, prover.prove(wit)) == vp.marshal_proof()
+    monkeypatch.setattr(Prover, "prove", lambda self, wit: vps[0].proof)
+    second = [Pyth(a=a, b=b, c=c) for a, b, c in triples[:2]]
+    with pytest.raises(RuntimeError, match="^proof 1 failed native verification$"):
+        prove_batch(cc, second, devices=["cpu"])
+    (stale,) = prove_batch(cc, second[1:], devices=["cpu"], self_verify=False)
+    assert stale.proof is vps[0].proof

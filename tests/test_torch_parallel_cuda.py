@@ -113,7 +113,7 @@ def test_sharded_prove_on_card(cuda_device, mesh):
         prover = Prover(cc.pk, cc.ccs, rng=False, mesh=m)
         wit = witness_mod.solve(cc.ccs, assignment, commitment_solver=prover.bsb_solver)
         proofs[m is None] = prover.prove(wit)
-    assert prover.sharded_ntt_hits == 19
+    assert prover.sharding.ntt_hits == 19
     assert marshal_proof(apt.BN254, proofs[False]) == marshal_proof(apt.BN254, proofs[True])
     assert V.verify(cc.vk, proofs[False], wit.public_values)
 
@@ -146,7 +146,7 @@ def test_prove_batch_evicting_quotient_on_card(cuda_device, monkeypatch):
     cc = apt.compile(SquareChain, apt.BN254, apt.SetupName.TEST_ONLY_BN254, device=cuda_device)
     xs = [0xA1607 + i for i in range(6)]
     assignments = [SquareChain(x=x, y=pow(x, 1 << chain, r)) for x in xs]
-    monkeypatch.setenv("AP_QUOTIENT_LM", "1")
+    monkeypatch.setattr(prove_mod, "LM_MIN_LOG", 0)
     want = []
     for a in assignments:
         prover = Prover(cc.pk, cc.ccs, rng=False)

@@ -16,6 +16,7 @@ from algoplonk_tpu.plonk.marshal import marshal_proof as jax_marshal
 from algoplonk_tpu.plonk.prove import Prover as JaxProver
 from algoplonk_tpu_torch.frontend import witness as witness_mod
 from algoplonk_tpu_torch.parallel import Mesh
+from algoplonk_tpu_torch.plonk import prove as prove_mod
 from algoplonk_tpu_torch.plonk import verify as V
 from algoplonk_tpu_torch.plonk.marshal import marshal_proof
 from algoplonk_tpu_torch.plonk.prove import Prover
@@ -64,7 +65,7 @@ def sharded():
 def test_sharded_prove_matches_reference(jax_bytes, sharded):
     cc, prover, wit, proof = sharded
     # 5 size-n iNTTs (l, r, o, z, qk), 13 lifts and the coset iNTT
-    assert prover.sharded_ntt_hits == 19
+    assert prover.sharding.ntt_hits == 19
     assert marshal_proof(apt.BN254, proof) == jax_bytes
     assert V.verify(cc.vk, proof, wit.public_values)
     r = apt.BN254.fr.modulus
@@ -74,12 +75,9 @@ def test_sharded_prove_matches_reference(jax_bytes, sharded):
 @pytest.mark.parametrize("mesh", [None, "cpu4"])
 def test_mesh_takes_the_batch_major_quotient(monkeypatch, sharded, mesh):
     """With a mesh the size rule never picks the four-step quotient (its
-    transforms do not shard); AP_QUOTIENT_LM still forces either path."""
+    transforms do not shard), even with LM_MIN_LOG at 0; without one it
+    does."""
     cc = sharded[0]
     prover = Prover(cc.pk, cc.ccs, rng=False, mesh=Mesh(["cpu"] * 4) if mesh else None)
-    monkeypatch.delenv("AP_QUOTIENT_LM", raising=False)
-    monkeypatch.setenv("AP_NTT_LM_MIN_LOG", "4")
+    monkeypatch.setattr(prove_mod, "LM_MIN_LOG", 0)
     assert prover._use_lm_quotient() is (mesh is None)
-    for forced in ("0", "1"):
-        monkeypatch.setenv("AP_QUOTIENT_LM", forced)
-        assert prover._use_lm_quotient() is (forced == "1")

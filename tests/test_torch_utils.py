@@ -194,7 +194,7 @@ def test_torch_trace_holds_the_span_rows(tmp_path):
 
 def test_persistent_cache_needs_a_card(monkeypatch):
     """With a CUDA device it builds or loads the kernel library once; without
-    one, or with AP_PERSIST_CACHE=0, nothing is built."""
+    one nothing is built."""
     from algoplonk_tpu_torch.ops import _build
 
     built = []
@@ -203,8 +203,6 @@ def test_persistent_cache_needs_a_card(monkeypatch):
     assert compile_cache.enable_persistent_cache() is False
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert compile_cache.enable_persistent_cache() is True and built == [1]
-    monkeypatch.setenv("AP_PERSIST_CACHE", "0")
-    assert compile_cache.enable_persistent_cache() is False and built == [1]
 
 
 def test_prover_warms_the_kernel_library_on_cuda_only(tiny, monkeypatch):
